@@ -141,6 +141,24 @@ band_counts_kernel(const uint4* __restrict__ packed,
 extern "C" int slam_band_count_tiles(const void* packed, const void* valid,
                                      const void* qidx, const void* tidx,
                                      void* out, int p_cnt, int n, int block,
+                                     float scale, void* stream);
+
+// Counts of an explicit list of frame PAIRS (qidx[p], tidx[p]): the tiles
+// above with block = 1, one CUDA block per pair, out[p] the pair's count.
+// Replaces: pallas_kernels.py, _pair_d1_kernel (via block_pair_counts_fused,
+// [Fq] x [Ft] frames with the finalize XLA ran after it) — the live loop
+// scan of one frame against the frame database. Frames are addressed in
+// place, so the scan reads the database without a copy.
+extern "C" int slam_pair_counts(const void* packed, const void* valid,
+                                const void* qidx, const void* tidx, void* out,
+                                int p_cnt, int n, float scale, void* stream) {
+  return slam_band_count_tiles(packed, valid, qidx, tidx, out, p_cnt, n, 1,
+                               scale, stream);
+}
+
+extern "C" int slam_band_count_tiles(const void* packed, const void* valid,
+                                     const void* qidx, const void* tidx,
+                                     void* out, int p_cnt, int n, int block,
                                      float scale, void* stream) {
   const long long blocks = static_cast<long long>(p_cnt) * block * block;
   const size_t smem = static_cast<size_t>(n) * sizeof(int);

@@ -19,6 +19,9 @@ fast_score_nms_blur    csrc/fast_score_nms_blur.cu    ``_fast_kernel``
 extract_patches        csrc/extract_patches.cu        ``_patch_kernel``
 band_count_tiles       csrc/band_counts.cu            ``_band_d1_kernel`` and
                                                       ``_band_counts_kernel``
+pair_counts            csrc/band_counts.cu            ``_pair_d1_kernel``
+hamming_nn             csrc/hamming_nn.cu             ``_hamming_nn_kernel``
+motion_support         csrc/motion_support.cu         ``_support_kernel``
 =====================  =============================  ==========================
 """
 
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
@@ -36,7 +40,8 @@ from slam_loop_closing_tpu_torch.ops import orb
 from slam_loop_closing_tpu_torch.utils import cuda_build
 
 LAUNCHES = {"fast_score_nms_blur": 0, "extract_patches": 0,
-            "band_count_tiles": 0}
+            "band_count_tiles": 0, "pair_counts": 0, "hamming_nn": 0,
+            "motion_support": 0}
 
 
 def reset_launch_counts() -> None:
@@ -157,12 +162,13 @@ def band_count_tiles_plain(packed: torch.Tensor, valid: torch.Tensor,
     ``tidx[p] * block`` (targets). ``packed`` is [F, N, 8] int32 descriptor
     words, ``valid`` [F, N] bool, F a multiple of ``block``. Returns
     [P, block, block] int32 ([query frame, target frame]) by
-    :func:`..matching.block_pair_counts` per tile."""
+    :func:`..matching.block_pair_counts_plain` per tile."""
     f, n, _ = packed.shape
     signed = desc_ops.bits_to_signed(desc_ops.packed_to_bits(packed))
     sb = signed.reshape(f // block, block, n, desc_ops.BITS)
     vb = valid.reshape(f // block, block, n)
-    tiles = [matching.block_pair_counts(sb[q], vb[q], sb[t], vb[t], scale)
+    tiles = [matching.block_pair_counts_plain(sb[q], vb[q], sb[t], vb[t],
+                                                scale)
              for q, t in zip(qidx.tolist(), tidx.tolist())]
     if not tiles:
         return torch.zeros((0, block, block), dtype=torch.int32,
@@ -197,4 +203,166 @@ def band_count_tiles(packed: torch.Tensor, valid: torch.Tensor,
     _launch("band_count_tiles", packed.device, packed.data_ptr(),
             valid.data_ptr(), qidx.data_ptr(), tidx.data_ptr(),
             out.data_ptr(), p_cnt, n, block, scale)
+    return out
+
+
+# --------------------------------------------------------------------------
+# K5: good-match counts of explicit frame pairs (kernel C's frame-pair entry)
+# --------------------------------------------------------------------------
+
+def _signed_frames(packed: torch.Tensor, frames: torch.Tensor) -> torch.Tensor:
+    return desc_ops.bits_to_signed(desc_ops.packed_to_bits(
+        packed.index_select(0, frames)))
+
+
+def pair_counts_plain(packed: torch.Tensor, valid: torch.Tensor,
+                      qidx: torch.Tensor, tidx: torch.Tensor,
+                      scale: float = 2.0) -> torch.Tensor:
+    """[P] int32 good-match counts of the frame pairs (``qidx[p]``,
+    ``tidx[p]``) of ``packed`` [F, N, 8] int32 words with validity ``valid``
+    [F, N]: :func:`..matching.block_pair_counts_plain` of each query frame
+    against its targets."""
+    out = torch.zeros(qidx.shape[0], dtype=torch.int32, device=packed.device)
+    for q in torch.unique(qidx).tolist():
+        sel = torch.nonzero(qidx == q)[:, 0]
+        t = tidx[sel].long()
+        qf = torch.tensor([q], device=packed.device)
+        out[sel] = matching.block_pair_counts_plain(
+            _signed_frames(packed, qf), valid[qf], _signed_frames(packed, t),
+            valid[t], scale)[0]
+    return out
+
+
+def pair_counts(packed: torch.Tensor, valid: torch.Tensor, qidx: torch.Tensor,
+                tidx: torch.Tensor, scale: float = 2.0) -> torch.Tensor:
+    """:func:`pair_counts_plain`; on CUDA tensors kernel C's device code
+    launched over the pair list as 1x1 tiles (one block per pair). The
+    frames stay where they are: the pairs index ``packed`` directly, so the
+    live scan reads the frame database in place. Bitwise equal to the plain
+    version (integers)."""
+    _require(packed.dim() == 3 and packed.shape[2] == desc_ops.WORDS
+             and packed.dtype == torch.int32, "packed must be [F, N, 8] int32")
+    f, n, _ = packed.shape
+    _require(valid.shape == (f, n) and valid.dtype == torch.bool,
+             "valid must be [F, N] bool")
+    _require(qidx.shape == tidx.shape and qidx.dim() == 1,
+             "qidx and tidx must be [P]")
+    if not _on_cuda(packed, valid, qidx, tidx):
+        return pair_counts_plain(packed, valid, qidx, tidx, scale)
+    packed = packed.contiguous()
+    _require(packed.data_ptr() % 16 == 0, "packed must be 16-byte aligned")
+    valid = valid.contiguous().view(torch.uint8)
+    qidx = qidx.to(torch.int32).contiguous()
+    tidx = tidx.to(torch.int32).contiguous()
+    out = torch.empty(qidx.shape[0], dtype=torch.int32, device=packed.device)
+    _launch("pair_counts", packed.device, packed.data_ptr(), valid.data_ptr(),
+            qidx.data_ptr(), tidx.data_ptr(), out.data_ptr(), qidx.shape[0],
+            n, scale)
+    return out
+
+
+# --------------------------------------------------------------------------
+# D: Hamming nearest neighbour
+# --------------------------------------------------------------------------
+
+def hamming_nn_plain(packed_q: torch.Tensor, valid_q: torch.Tensor,
+                     packed_t: torch.Tensor, valid_t: torch.Tensor):
+    """Nearest valid target per query row over Hamming distance: ([M] d1,
+    [M] idx) int32, the lowest index on ties. A row with an invalid query,
+    or with no valid target, gets d1 = 2^30 and idx 0 (the JAX package's
+    reference path: :func:`..matching._mask_dist` + argmin)."""
+    sq = desc_ops.bits_to_signed(desc_ops.packed_to_bits(packed_q))
+    st = desc_ops.bits_to_signed(desc_ops.packed_to_bits(packed_t))
+    d = matching._mask_dist(matching.hamming_matrix(sq, st), valid_q, valid_t)
+    idx = torch.argmin(d, dim=1)
+    d1 = torch.gather(d, 1, idx[:, None])[:, 0]
+    return d1.to(torch.int32), idx.to(torch.int32)
+
+
+def hamming_nn(packed_q: torch.Tensor, valid_q: torch.Tensor,
+               packed_t: torch.Tensor, valid_t: torch.Tensor):
+    """:func:`hamming_nn_plain` of ``[M, 8]`` / ``[N, 8]`` int32 packed
+    words; on CUDA tensors one kernel (a warp per query row, XOR +
+    ``__popc``). Bitwise equal to the plain version.
+
+    Unlike the TPU kernel, which leaves invalid query rows unmasked (their
+    d1 is the distance to the nearest target, for the caller to mask), an
+    invalid query row gets d1 = 2^30 and idx 0 here, as on the JAX
+    package's reference path."""
+    for w, v, name in ((packed_q, valid_q, "query"), (packed_t, valid_t,
+                                                       "target")):
+        _require(w.dim() == 2 and w.shape[1] == desc_ops.WORDS
+                 and w.dtype == torch.int32,
+                 f"{name} words must be [rows, 8] int32")
+        _require(v.shape == w.shape[:1] and v.dtype == torch.bool,
+                 f"{name} validity must be [rows] bool")
+    if not _on_cuda(packed_q, valid_q, packed_t, valid_t):
+        return hamming_nn_plain(packed_q, valid_q, packed_t, valid_t)
+    packed_q = packed_q.contiguous()
+    packed_t = packed_t.contiguous()
+    _require(packed_q.data_ptr() % 16 == 0 and packed_t.data_ptr() % 16 == 0,
+             "packed words must be 16-byte aligned")
+    m, n = packed_q.shape[0], packed_t.shape[0]
+    d1 = torch.empty(m, dtype=torch.int32, device=packed_q.device)
+    idx = torch.empty(m, dtype=torch.int32, device=packed_q.device)
+    _launch("hamming_nn", packed_q.device, packed_q.data_ptr(),
+            packed_t.data_ptr(), valid_q.contiguous().view(torch.uint8)
+            .data_ptr(), valid_t.contiguous().view(torch.uint8).data_ptr(),
+            d1.data_ptr(), idx.data_ptr(), m, n)
+    return d1, idx
+
+
+# --------------------------------------------------------------------------
+# E: motion-coherence support
+# --------------------------------------------------------------------------
+
+def _square_f32(x: float) -> float:
+    """``x`` squared once in float32 (the TPU kernel's ``jnp.square`` of the
+    float32 radius), as the Python float holding it."""
+    return float(np.float32(x) * np.float32(x))
+
+
+def motion_support_plain(xy_q: torch.Tensor, xy_t_matched: torch.Tensor,
+                         mask: torch.Tensor, radius: float,
+                         tau: float) -> torch.Tensor:
+    """[N] int32 motion-coherence support by the TPU kernel's direct
+    differences: match j supports i when ``(x_i - x_j)^2 + (y_i - y_j)^2 <
+    radius^2`` and the displacements ``xy_q - xy_t_matched`` agree within
+    ``tau`` the same way; self-support excluded, 0 on invalid rows. Each
+    square is ``d * d`` and each sum one rounding, as in the kernel."""
+    disp = xy_q - xy_t_matched
+    r2, t2 = _square_f32(radius), _square_f32(tau)
+
+    def sq_dist(a):
+        ex = a[:, None, 0] - a[None, :, 0]
+        ey = a[:, None, 1] - a[None, :, 1]
+        return ex * ex + ey * ey
+
+    ok = (sq_dist(xy_q) < r2) & (sq_dist(disp) < t2) & mask[None, :]
+    s = torch.sum(ok, dim=1, dtype=torch.int32)
+    return torch.where(mask, s - 1, 0).to(torch.int32)
+
+
+def motion_support(xy_q: torch.Tensor, xy_t_matched: torch.Tensor,
+                   mask: torch.Tensor, radius: float,
+                   tau: float) -> torch.Tensor:
+    """:func:`motion_support_plain` of [N, 2] float32 points, as one kernel
+    on CUDA tensors (a thread per query match, the match set staged in
+    shared memory, no FMA contraction). Bitwise equal to the plain
+    version."""
+    _require(xy_q.dim() == 2 and xy_q.shape[1] == 2
+             and xy_q.dtype == torch.float32
+             and xy_t_matched.shape == xy_q.shape
+             and xy_t_matched.dtype == torch.float32,
+             "points must be [N, 2] float32")
+    _require(mask.shape == xy_q.shape[:1] and mask.dtype == torch.bool,
+             "mask must be [N] bool")
+    if not _on_cuda(xy_q, xy_t_matched, mask):
+        return motion_support_plain(xy_q, xy_t_matched, mask, radius, tau)
+    q = torch.cat([xy_q, xy_q - xy_t_matched], dim=1).contiguous()  # [N, 4]
+    _require(q.data_ptr() % 16 == 0, "point buffer must be 16-byte aligned")
+    out = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
+    _launch("motion_support", q.device, q.data_ptr(),
+            mask.contiguous().view(torch.uint8).data_ptr(), out.data_ptr(),
+            q.shape[0], _square_f32(radius), _square_f32(tau))
     return out

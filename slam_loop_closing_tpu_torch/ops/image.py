@@ -87,6 +87,16 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], weights, f32(0.0)).astype(f32)
 
 
+@functools.lru_cache(maxsize=64)
+def _device_weights(in_size: int, out_size: int, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """:func:`resize_weights` rounded to ``dtype``, as float32 on ``device``.
+    Kept (never written to): a copy from host memory per call would be a
+    host sync per pyramid level on a CUDA device."""
+    return torch.from_numpy(resize_weights(in_size, out_size)).to(
+        device=device, dtype=dtype).to(torch.float32)
+
+
 def resize_bilinear(imgs: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Antialiased bilinear resize of ``[..., H, W]`` — the arithmetic of
     ``jax.image.resize(method="bilinear")`` at the input's dtype: weights
@@ -98,8 +108,7 @@ def resize_bilinear(imgs: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     dt = imgs.dtype
 
     def weights(n_in, n_out):
-        return torch.from_numpy(resize_weights(n_in, n_out)).to(
-            device=imgs.device, dtype=dt).to(torch.float32)
+        return _device_weights(n_in, n_out, dt, imgs.device)
 
     def rows(x):
         return (weights(h, out_h).T @ x.to(torch.float32)).to(dt)

@@ -117,6 +117,13 @@ def orientation_from_patches(patches: torch.Tensor, valid: torch.Tensor,
     return torch.where(valid, torch.atan2(m[:, 1], m[:, 0]), 0.0)
 
 
+@functools.lru_cache(maxsize=8)
+def _moment_weights_on(device: torch.device) -> torch.Tensor:
+    """:func:`_orientation_moment_weights` on ``device``, kept (never written
+    to): a copy from host memory per frame would be a host sync."""
+    return torch.from_numpy(_orientation_moment_weights()).to(device)
+
+
 def make_brief_bin_matrices(pattern: np.ndarray, num_bins: int = 30,
                             patch: int = PATCH) -> np.ndarray:
     """[num_bins, patch*patch, 512] one-hot sampling matrices: bin b's matrix
@@ -229,7 +236,7 @@ def detect_and_describe_batch(imgs: torch.Tensor, cfg: OrbConfig = OrbConfig(),
     b, k = val.shape
     flat_patches = patches.reshape(b * k, PATCH, PATCH)
     flat_val = val.reshape(-1)
-    mw = torch.from_numpy(_orientation_moment_weights()).to(imgs.device)
+    mw = _moment_weights_on(imgs.device)
     ang = orientation_from_patches(flat_patches, flat_val, mw)
     bits = brief_from_patches_binned(flat_patches, ang, flat_val, pattern)
     bits = bits.reshape(b, k, desc_ops.BITS)

@@ -1,14 +1,18 @@
 """State carried across from the JAX package: its arrays, as numpy (or any
 object ``numpy.asarray`` accepts), become the port's tensors. Used to feed
 one package's intermediate results into the other's next stage, e.g. the
-JAX front-end's features into the port's matcher."""
+JAX front-end's features into the port's matcher, or a JAX system's frame
+database into the port's loop scan. Random state does not carry across: a
+``jax.random`` key has no ``torch.Generator`` counterpart."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from slam_loop_closing_tpu_torch.ops import orb
+from slam_loop_closing_tpu_torch.models.loop_closing import FrameDatabase
+from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
+from slam_loop_closing_tpu_torch.ops import matching, orb
 
 
 def brief_matrices(d, device) -> torch.Tensor:
@@ -40,3 +44,26 @@ def orb_features(feats, device) -> orb.OrbFeatures:
             valid=t(kp.valid, bool)),
         descriptors=torch.tensor(words.view(np.int32), device=device),
         signed=t(feats.signed, np.int8))
+
+
+def database(system, device) -> FrameDatabase:
+    """The device frame database of a JAX ``LoopClosingSystem`` (its
+    ``_db_signed``, ``_db_valid``, ``_db_xy`` and ``_db_nfeat`` arrays) as
+    the port's, the signed descriptors packed into words."""
+    signed = torch.tensor(np.asarray(system._db_signed, np.int8),
+                          device=device)
+    return FrameDatabase(
+        packed=desc_ops.signed_to_packed(signed),
+        valid=torch.tensor(np.asarray(system._db_valid, bool), device=device),
+        xy=torch.tensor(np.asarray(system._db_xy, np.float32), device=device),
+        nfeat=torch.tensor(np.asarray(system._db_nfeat, np.int32),
+                           device=device))
+
+
+def matches(m, device) -> matching.Matches:
+    """A JAX ``Matches`` as the port's (int32 indices and distances)."""
+    return matching.Matches(
+        idx=torch.tensor(np.asarray(m.idx, np.int32), device=device),
+        dist=torch.tensor(np.asarray(m.dist, np.int32), device=device),
+        mask=torch.tensor(np.asarray(m.mask, bool), device=device),
+        count=torch.tensor(np.asarray(m.count, np.int32), device=device))

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into ONE
-shared library with a plain C interface, at first use, and :mod:`ctypes`
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one
+compiler process per source, all started together, and links the objects
+into ONE shared library with a plain C interface, at first use; :mod:`ctypes`
 loads it. The library lands in ``build/torch_kernels/`` at the repository
 root, named by a hash of the sources and flags, so an edited source builds
 anew and an unchanged one is reused; the compiler's output (``-Xptxas -v``:
@@ -27,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:
@@ -55,24 +56,41 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists.
-    Writes to a temporary name and renames, so concurrent builders never
-    load a half-written file."""
+    Every source compiles in its own ``nvcc`` process, in parallel; the
+    link writes to a temporary name and renames, so concurrent builders
+    never load a half-written file."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        jobs = []
+        for src in (s for s in sources() if s.suffix == ".cu"):
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                   str(Path(tmpdir) / f"{src.stem}.o"), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for cmd, proc in jobs:
+            text = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + text)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} ({proc.returncode}):\n{text[-4000:]}")
+        tmp = Path(tmpdir) / "lib.so"
+        if not failed:
+            cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                   *(c[c.index("-o") + 1] for c, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n"
+                              f"{proc.stderr[-4000:]}")
+        out.with_suffix(".log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        os.replace(tmp, out)
     return out
 
 
@@ -91,6 +109,12 @@ def load() -> ctypes.CDLL:
         "slam_extract_patches": (p, p, p, i, i, i, i, i, i, p),
         # packed, valid, qidx, tidx, out, p_cnt, n, block, scale, stream
         "slam_band_count_tiles": (p, p, p, p, p, i, i, i, f, p),
+        # packed, valid, qidx, tidx, out, p_cnt, n, scale, stream
+        "slam_pair_counts": (p, p, p, p, p, i, i, f, p),
+        # q, t, valid_q, valid_t, d1, idx, m, n, stream
+        "slam_hamming_nn": (p, p, p, p, p, p, i, i, p),
+        # q [n, 4], mask, out, n, radius^2, tau^2, stream
+        "slam_motion_support": (p, p, p, i, f, f, p),
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

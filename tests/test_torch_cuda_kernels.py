@@ -6,7 +6,9 @@ device (the CPU test run); on a machine with a card and nvcc:
         tests/test_torch_cuda_kernels.py
 
 (``--noconftest``: the tests' conftest configures JAX, which this file does
-not use.) Integer outputs, the FAST score and the blur are bitwise equal.
+not use.) Integer outputs, the FAST score and the blur are bitwise equal;
+so are the nearest-neighbour (D), motion-support (E) and frame-pair count
+(K5) kernels.
 """
 
 import dataclasses
@@ -107,7 +109,8 @@ def test_banded_counts_on_card_equal_cpu(dev):
 
 def test_process_video_on_card_equals_cpu(dev):
     """The 32-frame orbit fixture: the same loops on the card (kernels) as
-    on the CPU (plain versions), through all three kernels."""
+    on the CPU (plain versions), through the batched path's kernels A, B
+    and C."""
     cfg = dataclasses.replace(
         PipelineConfig(), orb=OrbConfig(num_features=300, num_levels=2),
         loop=LoopConfig(loop_threshold=0.15, min_loop_gap=20, frame_skip=1))
@@ -117,7 +120,91 @@ def test_process_video_on_card_equals_cpu(dev):
     before = dict(ck.LAUNCHES)
     card = LoopClosingSystem(cfg, max_frames=32, device=dev).process_video(
         frames)
-    assert all(ck.LAUNCHES[k] > before[k] for k in before)
+    assert all(ck.LAUNCHES[k] > before[k] for k in
+               ("fast_score_nms_blur", "extract_patches", "band_count_tiles"))
     assert cpu
     assert [(c.current_frame_id, c.matched_frame_id) for c in card] == \
         [(c.current_frame_id, c.matched_frame_id) for c in cpu]
+
+
+def _signed(rng, rows):
+    return (rng.integers(0, 2, (rows, 256)) * 2 - 1).astype(np.int8)
+
+
+@pytest.mark.parametrize("m,n", [(70, 90), (2000, 2000), (5, 1100)])
+def test_hamming_nn_kernel_bitwise(dev, m, n):
+    """Duplicated targets (ties to the lowest index), invalid rows on both
+    sides, target sets crossing 512-row chunks, and an all-invalid target
+    set."""
+    rng = np.random.default_rng(m + n)
+    sq, st = _signed(rng, m), _signed(rng, n)
+    st[n // 2:n // 2 + 3] = st[:3]
+    sq[:3] = st[:3]
+    vq = torch.from_numpy(rng.random(m) > 0.1).to(dev)
+    vt = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    pq = desc_ops.signed_to_packed(torch.from_numpy(sq).to(dev))
+    pt = desc_ops.signed_to_packed(torch.from_numpy(st).to(dev))
+    for valid_t in (vt, torch.zeros_like(vt)):
+        d1, idx = ck.hamming_nn(pq, vq, pt, valid_t)
+        ref_d1, ref_idx = ck.hamming_nn_plain(pq, vq, pt, valid_t)
+        assert torch.equal(d1, ref_d1) and torch.equal(idx, ref_idx)
+
+
+@pytest.mark.parametrize("n", [300, 2000, 2500])
+def test_motion_support_kernel_bitwise(dev, n):
+    rng = np.random.default_rng(n)
+    xy = torch.from_numpy(rng.normal(size=(n, 2)).astype(np.float32)).to(dev)
+    flow = torch.from_numpy(
+        (0.02 + 0.01 * rng.normal(size=(n, 2))).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    got = ck.motion_support(xy, xy - flow, mask, 0.208, 0.0256)
+    ref = ck.motion_support_plain(xy, xy - flow, mask, 0.208, 0.0256)
+    assert torch.equal(got, ref) and int(got.max()) > 0
+
+
+def test_pair_counts_kernel_bitwise(dev):
+    """One query frame against a database prefix, in place, and the block
+    form through matching.block_pair_counts."""
+    rng = np.random.default_rng(5)
+    f, n = 40, 700
+    signed = (rng.integers(0, 2, (f, n, 256)) * 2 - 1).astype(np.int8)
+    valid = rng.random((f, n)) > 0.1
+    valid[4] = False
+    signed[39, :60] = signed[2, :60]
+    valid[39, :60] = valid[2, :60] = True
+    signed = torch.from_numpy(np.where(valid[..., None], signed, 0)
+                              .astype(np.int8)).to(dev)
+    valid = torch.from_numpy(valid).to(dev)
+    packed = desc_ops.signed_to_packed(signed)
+    tidx = torch.arange(30, dtype=torch.int32, device=dev)
+    qidx = torch.full_like(tidx, 39)
+    got = ck.pair_counts(packed, valid, qidx, tidx)
+    assert torch.equal(got, ck.pair_counts_plain(packed, valid, qidx, tidx))
+    assert int(got[2]) >= 60 and int(got[4]) == 0
+    blocks = matching.block_pair_counts(signed[30:], valid[30:], signed[:8],
+                                        valid[:8])
+    assert torch.equal(blocks.cpu(), matching.block_pair_counts(
+        signed[30:].cpu(), valid[30:].cpu(), signed[:8].cpu(),
+        valid[:8].cpu()))
+
+
+def test_process_frame_on_card_equals_cpu(dev):
+    """The 32-frame orbit fixture frame by frame: the same loops on the card
+    as on the CPU, through kernels A, B, D, E and K5."""
+    cfg = dataclasses.replace(
+        PipelineConfig(), orb=OrbConfig(num_features=300, num_levels=2),
+        loop=LoopConfig(loop_threshold=0.15, min_loop_gap=20, frame_skip=1))
+    frames = orbit_sequence(num_frames=32, h=144, w=192, num_points=250, seed=3)
+    loops = {}
+    for d in ("cpu", dev):
+        sys_ = LoopClosingSystem(cfg, max_frames=32, log=lambda _: None,
+                                 device=d)
+        before = dict(ck.LAUNCHES)
+        for _, _ in sys_.process_stream(frames):
+            pass
+        loops[str(d)] = [(c.current_frame_id, c.matched_frame_id,
+                          c.num_matches) for c in sys_.get_loop_closures()]
+    for k in ("fast_score_nms_blur", "extract_patches", "hamming_nn",
+              "motion_support", "pair_counts"):
+        assert ck.LAUNCHES[k] > before[k]
+    assert loops["cpu"] and loops["cpu"] == loops[str(dev)]

@@ -161,6 +161,8 @@ def test_port_imports_no_jax():
     has jax loaded, hence the subprocess)."""
     code = ("import sys, slam_loop_closing_tpu_torch.models.loop_closing, "
             "slam_loop_closing_tpu_torch.ops.cuda_kernels, "
+            "slam_loop_closing_tpu_torch.ops.epipolar, "
+            "slam_loop_closing_tpu_torch.ops.ransac, "
             "slam_loop_closing_tpu_torch.utils.convert, "
             "slam_loop_closing_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m == 'jax' or "

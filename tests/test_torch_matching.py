@@ -1,8 +1,10 @@
 """The port's Version-A matching against the JAX package on the CPU: the
 descriptor layouts, Hamming distances, per-block counts and the banded
 counts (the plain version of the band-count kernel) against the XLA path
-and both TPU band kernels in interpret mode. Counts are integers: every
-comparison is bitwise."""
+and both TPU band kernels in interpret mode; the plain versions of the
+frame-pair count (K5), nearest-neighbour (D) and motion-support (E) kernels
+against their TPU kernels in interpret mode and the XLA path. Counts,
+indices and distances are integers: every such comparison is bitwise."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,7 @@ from slam_loop_closing_tpu.ops import pallas_kernels
 from slam_loop_closing_tpu_torch.ops import cuda_kernels
 from slam_loop_closing_tpu_torch.ops import descriptors as tdesc
 from slam_loop_closing_tpu_torch.ops import matching as tmatch
+from slam_loop_closing_tpu_torch.utils import convert
 
 torch.set_num_threads(1)
 
@@ -157,3 +160,170 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         cuda_kernels.extract_patches(torch.zeros((1, 40, 40)),
                                      torch.zeros((1, 3, 2), device="meta"))
+
+
+def packed(signed: np.ndarray) -> torch.Tensor:
+    return tdesc.signed_to_packed(torch.from_numpy(signed))
+
+
+@pytest.mark.parametrize("ref_name", ["pair_d1_kernel", "xla"])
+def test_pair_counts_bitwise(band_inputs, ref_name):
+    """K5's plain version on an explicit pair list (a query frame against
+    several targets, and a second query frame) against
+    block_pair_counts_fused in interpret mode and the XLA
+    block_pair_counts; the block form through the dispatching wrapper."""
+    signed, valid = band_inputs
+    s, v = jnp.asarray(signed), jnp.asarray(valid)
+    if ref_name == "xla":
+        ref = np.asarray(jmatch.block_pair_counts(s[8:10], v[8:10], s[:7],
+                                                  v[:7]))
+    else:
+        ref = np.asarray(pallas_kernels.block_pair_counts_fused(
+            s[8:10], v[8:10], s[:7], v[:7], interpret=True))
+    qidx = torch.tensor([8] * 7 + [9] * 7, dtype=torch.int32)
+    tidx = torch.arange(7, dtype=torch.int32).repeat(2)
+    got = cuda_kernels.pair_counts(packed(signed), torch.from_numpy(valid),
+                                   qidx, tidx)
+    np.testing.assert_array_equal(got.numpy(), ref.reshape(-1))
+    blocks = tmatch.block_pair_counts(
+        torch.from_numpy(signed[8:10]), torch.from_numpy(valid[8:10]),
+        torch.from_numpy(signed[:7]), torch.from_numpy(valid[:7]))
+    np.testing.assert_array_equal(blocks.numpy(), ref)
+    assert ref[1, 1] >= 12 and not ref[:, 2].any()
+
+
+@pytest.fixture(scope="module")
+def nn_inputs():
+    """Query and target descriptor sets with duplicated target rows (ties
+    between distinct indices), queries equal to a target, invalid rows on
+    both sides."""
+    rng = np.random.default_rng(11)
+    sq = (rng.integers(0, 2, (70, 256)) * 2 - 1).astype(np.int8)
+    st = (rng.integers(0, 2, (90, 256)) * 2 - 1).astype(np.int8)
+    st[40:50] = st[10:20]                      # exact duplicate targets
+    sq[:10] = st[10:20]                        # ties at distance 0
+    sq[10] = st[60]                            # matches an invalid target
+    vq = rng.random(70) > 0.1
+    vt = rng.random(90) > 0.15
+    vt[10:20] = vt[40:50] = True
+    vt[60] = False
+    return sq, vq, st, vt
+
+
+@pytest.mark.parametrize("all_invalid", [False, True])
+def test_hamming_nn_plain_equals_tpu_kernel(nn_inputs, all_invalid):
+    """On valid query rows: d1 and idx bitwise the TPU kernel's (interpret
+    mode), ties to the lowest index; an all-invalid target set gives
+    d1 = 2^30 and idx 0 on every row. (The TPU kernel leaves invalid query
+    rows unmasked; the port follows the XLA path there, see the next
+    test.)"""
+    sq, vq, st, vt = nn_inputs
+    if all_invalid:
+        vt = np.zeros_like(vt)
+    d1_ref, idx_ref = pallas_kernels.hamming_nn(
+        jnp.asarray(sq), jnp.asarray(st), jnp.asarray(vt), tile_m=64,
+        interpret=True)
+    d1, idx = cuda_kernels.hamming_nn(packed(sq), torch.from_numpy(vq),
+                                      packed(st), torch.from_numpy(vt))
+    np.testing.assert_array_equal(d1.numpy()[vq], np.asarray(d1_ref)[vq])
+    np.testing.assert_array_equal(idx.numpy()[vq], np.asarray(idx_ref)[vq])
+    if all_invalid:
+        assert (d1.numpy() == 2 ** 30).all() and not idx.numpy().any()
+    else:
+        np.testing.assert_array_equal(idx.numpy()[:10][vq[:10]],
+                                      np.arange(10, 20)[vq[:10]])
+        assert (d1.numpy()[~vq] == 2 ** 30).all()
+        assert not idx.numpy()[~vq].any()
+
+
+def test_nn_matches_2xmin_equal_jax_xla(nn_inputs):
+    """The 2 x min rule on the XLA path: idx and dist on valid query rows,
+    mask and count everywhere; also through convert.matches."""
+    sq, vq, st, vt = nn_inputs
+    sq = np.where(vq[:, None], sq, 0).astype(np.int8)
+    st = np.where(vt[:, None], st, 0).astype(np.int8)
+    ref = jmatch.nn_matches_2xmin(jnp.asarray(sq), jnp.asarray(vq),
+                                  jnp.asarray(st), jnp.asarray(vt))
+    got = tmatch.nn_matches_2xmin(packed(sq), torch.from_numpy(vq),
+                                  packed(st), torch.from_numpy(vt))
+    for name in ("idx", "dist"):
+        np.testing.assert_array_equal(getattr(got, name).numpy()[vq],
+                                      np.asarray(getattr(ref, name))[vq])
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(ref.mask))
+    assert int(got.count) == int(ref.count) > 0
+    conv = convert.matches(ref, "cpu")
+    for a, b in zip(conv, got):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    xy_q = torch.rand(70, 2)
+    xy_t = torch.rand(90, 2)
+    q, t = tmatch.gather_matched_points(xy_q, xy_t, got)
+    assert torch.equal(q, xy_q) and torch.equal(t, xy_t[got.idx.long()])
+
+
+@pytest.fixture(scope="module")
+def support_inputs():
+    """300 matches: float coordinates in normalized units at the live
+    path's radius/tau scale, and integer pixel coordinates."""
+    rng = np.random.default_rng(5)
+    xy_f = rng.normal(size=(300, 2)).astype(np.float32) * 0.3
+    flow = np.float32(0.02) + rng.normal(size=(300, 2)).astype(np.float32) * 0.01
+    xy_t_f = (xy_f - flow).astype(np.float32)
+    xy_i = rng.integers(0, 200, (300, 2)).astype(np.float32)
+    xy_t_i = (xy_i - rng.integers(-4, 5, (300, 2))).astype(np.float32)
+    mask = np.arange(300) < 280
+    mask[7] = False
+    return xy_f, xy_t_f, xy_i, xy_t_i, mask
+
+
+def test_motion_support_plain_equals_tpu_kernel(support_inputs):
+    """Float coordinates: bitwise the TPU kernel's direct-difference counts
+    (interpret mode)."""
+    xy, xy_t, _, _, mask = support_inputs
+    radius, tau = 0.208, 0.0256
+    ref = pallas_kernels.motion_support_pallas(
+        jnp.asarray(xy), jnp.asarray(xy_t), jnp.asarray(mask), radius, tau,
+        tile_m=64, interpret=True)
+    got = cuda_kernels.motion_support(torch.from_numpy(xy),
+                                      torch.from_numpy(xy_t),
+                                      torch.from_numpy(mask), radius, tau)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert got.numpy().max() > 5 and not got.numpy()[~mask].any()
+
+
+def test_motion_support_and_quality_equal_xla(support_inputs):
+    """Integer coordinates, where the XLA path's GEMM expansion is exact
+    too: support bitwise, prosac_quality within 1e-6."""
+    _, _, xy, xy_t, mask = support_inputs
+    radius, tau = 30.0, 3.0
+    ref = jmatch.motion_support(jnp.asarray(xy), jnp.asarray(xy_t),
+                                jnp.asarray(mask), radius, tau)
+    got = tmatch.motion_support(torch.from_numpy(xy), torch.from_numpy(xy_t),
+                                torch.from_numpy(mask), radius, tau)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    rng = np.random.default_rng(6)
+    dist = rng.integers(0, 80, 300).astype(np.int32)
+    jm = jmatch.Matches(idx=jnp.arange(300, dtype=jnp.int32),
+                        dist=jnp.asarray(dist), mask=jnp.asarray(mask),
+                        count=jnp.int32(mask.sum()))
+    q_ref = jmatch.prosac_quality(jnp.asarray(xy), jnp.asarray(xy_t), jm,
+                                  radius, tau)
+    q = tmatch.prosac_quality(torch.from_numpy(xy), torch.from_numpy(xy_t),
+                              convert.matches(jm, "cpu"), radius, tau)
+    np.testing.assert_allclose(q.numpy(), np.asarray(q_ref), rtol=0,
+                               atol=1e-6)
+
+
+def test_new_wrappers_refuse_other_devices():
+    meta = torch.empty((4, 8), dtype=torch.int32, device="meta")
+    vmeta = torch.empty(4, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError):
+        cuda_kernels.hamming_nn(meta, vmeta, meta, vmeta)
+    with pytest.raises(ValueError):
+        cuda_kernels.motion_support(torch.zeros((4, 2)), torch.zeros((4, 2)),
+                                    vmeta, 1.0, 1.0)
+    with pytest.raises(ValueError):
+        cuda_kernels.pair_counts(
+            torch.empty((2, 4, 8), dtype=torch.int32, device="meta"),
+            torch.empty((2, 4), dtype=torch.bool, device="meta"),
+            torch.zeros(1, dtype=torch.int32, device="meta"),
+            torch.zeros(1, dtype=torch.int32, device="meta"))
