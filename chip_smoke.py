@@ -26,7 +26,35 @@ each printed with its result and seconds on its own line:
    (plain versions) and on the card: bitwise pyramids, identical
    keypoints, identical descriptors wherever the orientation bin agrees;
    then the 32-frame 144x192 fixture of the tests through process_video and
-   through process_frame on the CPU and on the card: equal loop sets.
+   through process_frame on the CPU and on the card: equal loop sets;
+7. kernel F: the Hamming top-2 kernel against its plain version at the
+   Version-B shapes (one 1,000 x 1,000 keyframe-pass pair; the loop
+   search's pair list over a 48-keyframe store at gap 24; invalid query
+   and target rows, an all-invalid keyframe, forced ties), bitwise, and
+   kernel E over a batch of 32 match sets (a verification chunk);
+8. slice SfMPipeline.run: the Version-B pipeline at
+   bench_reconstruct.py's configuration (96 x 540x960 uint8 orbit frames,
+   ORB-1000 grid 8, its keyframe / loop-verify gates, 1,024 RANSAC
+   hypotheses, ``use_scan=True``): a warm-up pass that counts the host
+   syncs of the keyframe pass, a timed run from host memory that writes
+   the OBJ under a temporary directory — kernels A, B, E and F must
+   launch, the loop must be found, the final reprojection error must be
+   below the error before BA — a timed run on frames resident on the card
+   (bench_reconstruct.py's contract, no OBJ), a synchronized stage split,
+   and the device idle share under the profiler;
+9. agreement SfM: the 24-frame 144x192 fixture of tests/test_torch_sfm.py
+   through ``SfMPipeline.run`` on the CPU and on the card with the same
+   RANSAC minimal sets fed to both (drawn once on the CPU, replayed on the
+   card): equal front-end outputs, keyframes, loop pair and loop match
+   count; the loop's inlier counts within 3, the map's point and
+   observation counts within 1% and the reprojection errors within 10%
+   (cuSOLVER's and LAPACK's SVDs differ in the last bits, which flips a
+   few points at the Sampson and parallax gates, and the pose chain moves
+   with them; the card's BA and PGO sum with float atomics). The
+   fixture runs at 512 hypotheses, not the tests' 128: at 128 the
+   generator's own draws meet a RANSAC collapse at frame 19 (the JAX
+   package collapses the same way on the same draws), no loop is found,
+   and the phase would not reach the loop search.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after. Any failure raises (exit code 1). The line before the last is
@@ -56,16 +84,30 @@ REPLACES = {"fast_score_nms_blur": f"{PKG}:736",     # _fast_kernel
             "band_count_tiles": f"{PKG}:356",         # _band_d1_kernel (+ :538)
             "pair_counts": f"{PKG}:378",              # _pair_d1_kernel
             "hamming_nn": f"{PKG}:57",                # _hamming_nn_kernel
+            "hamming_knn2": f"{PKG}:239",             # _hamming_knn2_kernel
             "motion_support": f"{PKG}:649"}           # _support_kernel
 SOURCES = {"fast_score_nms_blur": "fast_score_nms_blur.cu",
            "extract_patches": "extract_patches.cu",
            "band_count_tiles": "band_counts.cu",
            "pair_counts": "band_counts.cu",
            "hamming_nn": "hamming_nn.cu",
+           "hamming_knn2": "hamming_nn.cu",
            "motion_support": "motion_support.cu"}
 VIDEO_KERNELS = ("fast_score_nms_blur", "extract_patches", "band_count_tiles")
 STREAM_KERNELS = ("fast_score_nms_blur", "extract_patches", "pair_counts",
                   "hamming_nn", "motion_support")
+SFM_FRAMES, SFM_H, SFM_W = 96, 540, 960   # bench_reconstruct.py's defaults
+SFM_FEATURES = 1000
+SFM_STORE, SFM_GAP = 48, 24     # kernel F's loop-search check: K/2 gap
+SFM_KERNELS = ("fast_score_nms_blur", "extract_patches", "hamming_knn2",
+               "motion_support")
+# CPU vs card on the SfM fixture: float gates (the Sampson threshold, the
+# parallax gate) flip for a few points near their thresholds, so inlier and
+# map counts agree within these bounds, not exactly
+SFM_INLIERS_ATOL = 3            # loop inlier / pose-inlier counts
+SFM_COUNT_RTOL = 0.01           # map point and observation counts
+SFM_RTOL = 0.1                  # reprojection errors (a map a few points
+                                # and a pose chain apart: 4.7% after BA)
 
 
 def phase(name: str, t0: float, result: str) -> None:
@@ -457,11 +499,12 @@ def run_stream(frames_u8: np.ndarray, dev, video_loops) -> dict:
           "synchronized: " + ", ".join(f"{k} {v:.2f} ms"
                                        for k, v in split.items()))
 
-    # device idle share of the live path: 8 more frames under the profiler
+    # device idle share of the live path: 8 more frames under the profiler,
+    # device activity only (with the CPU's op events as well, the sum of
+    # self device times counts each kernel twice)
     t0 = time.perf_counter()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t_w = time.perf_counter()
         for _ in system.process_stream(frames_u8[:8]):
             pass
@@ -469,7 +512,7 @@ def run_stream(frames_u8: np.ndarray, dev, video_loops) -> dict:
     busy = sum(getattr(e, "self_device_time_total", 0.0)
                for e in prof.key_averages()) / 1e6
     phase("slice idle share", t0, f"8 frames in {wall * 1e3:.1f} ms, device "
-          f"busy {busy * 1e3:.1f} ms (profiler self device time): idle share "
+          f"busy {busy * 1e3:.1f} ms (profiler, kernel time): idle share "
           f"{max(0.0, 1.0 - busy / wall):.0%}")
     return launches
 
@@ -557,6 +600,383 @@ def check_cpu_agreement(dev) -> None:
               f"difference {diff}")
 
 
+def sfm_config():
+    """bench_reconstruct.py's configuration: ORB-1000 with one keypoint per
+    8-px cell at 540x960, its camera (f = 0.8 w, no distortion), keyframe
+    and loop-verify gates, and 1,024 RANSAC hypotheses."""
+    from slam_loop_closing_tpu_torch.config import (CameraConfig,
+                                                    KeyframeConfig,
+                                                    LoopVerifyConfig,
+                                                    OrbConfig, PipelineConfig,
+                                                    RansacConfig)
+
+    cam = CameraConfig(fx=0.8 * SFM_W, fy=0.8 * SFM_W, cx=SFM_W / 2,
+                       cy=SFM_H / 2, k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0)
+    return dataclasses.replace(
+        PipelineConfig(), camera=cam, detector="orb",
+        orb=OrbConfig(num_features=SFM_FEATURES, grid_cell=8),
+        keyframe=KeyframeConfig(min_median_displacement=2.0,
+                                max_median_displacement=300.0,
+                                min_tracked_features=60,
+                                min_inlier_ratio=0.25, min_inliers=40),
+        loop_verify=LoopVerifyConfig(min_matches=60, min_inliers=40,
+                                     min_inlier_ratio=0.4,
+                                     min_pose_inliers=20),
+        ransac=RansacConfig(num_hypotheses=1024))
+
+
+def check_sfm_kernels(dev) -> dict:
+    """Kernel F at the keyframe pass's and the loop search's shapes, and
+    kernel E over a verification chunk of 32 match sets."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.models import sfm
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2)
+    k, n = SFM_STORE, SFM_FEATURES
+    signed = (rng.integers(0, 2, (k, n, 256)) * 2 - 1).astype(np.int8)
+    valid = rng.random((k, n)) < 0.95
+    signed[:, 500:520] = signed[:, 400:420]   # duplicated targets
+    valid[:, 400:420] = valid[:, 500:520] = True
+    signed[k - 1, :100] = signed[k - 2, 400:500]   # queries equal to targets
+    valid[k - 1, :100] = True
+    valid[5] = False                          # an all-invalid keyframe
+    packed = desc_ops.signed_to_packed(torch.from_numpy(signed).to(dev))
+    vt = torch.from_numpy(valid).to(dev)
+    del signed
+    pairs = [(c, p) for c in range(SFM_GAP, k)
+             for p in range(0, c - SFM_GAP + 1)]
+    loop_q, loop_t = torch.tensor(pairs, dtype=torch.int32, device=dev).T
+    one_q = torch.tensor([k - 1], dtype=torch.int32, device=dev)
+    one_t = torch.tensor([k - 2], dtype=torch.int32, device=dev)
+    big = 2 ** 30
+    times = {}
+    for shape, (qi, ti) in (("keyframe pass", (one_q, one_t)),
+                            ("loop search", (loop_q, loop_t))):
+        got = ck.hamming_knn2(packed, vt, packed, vt, qi, ti)
+        ref = ck.hamming_knn2_plain(packed, vt, packed, vt, qi, ti)
+        check_bitwise(f"hamming_knn2 ({shape})", got, ref)
+        times[shape] = (
+            cuda_ms(lambda: ck.hamming_knn2(packed, vt, packed, vt, qi, ti),
+                    20),
+            cuda_ms(lambda: ck.hamming_knn2_plain(packed, vt, packed, vt, qi,
+                                                  ti), 3))
+    d1, idx, d2 = (t.cpu().numpy() for t in got)
+    inv_q = ~valid[np.asarray(pairs)[:, 0]]
+    empty_t = np.asarray(pairs)[:, 1] == 5
+    if not ((d1[inv_q] == big) & (idx[inv_q] == 0) & (d2[inv_q] == big)).all():
+        raise AssertionError("invalid query rows are not (2^30, 0, 2^30)")
+    if not ((d1[empty_t] == big) & (d2[empty_t] == big)).all():
+        raise AssertionError("an all-invalid target frame gave a match")
+    d1, idx, d2 = (t.cpu().numpy()[0] for t in ck.hamming_knn2(
+        packed, vt, packed, vt, one_q, one_t))
+    if not ((d1[:20] == 0) & (d2[:20] == 0)
+            & (idx[:20] == np.arange(400, 420))).all():
+        raise AssertionError("forced ties: d2 must equal d1 at the lowest idx")
+    ms, plain_ms = times["loop search"]
+    records = {"hamming_knn2": dict(max_abs_err=0.0, ms=ms,
+                                    plain_ms=plain_ms)}
+    phase("kernel F hamming_knn2", t0,
+          f"{n} x {n} rows; 1 pair (keyframe pass): bitwise, kernel "
+          f"{times['keyframe pass'][0]:.3f} ms, plain "
+          f"{times['keyframe pass'][1]:.3f} ms; {len(pairs)} pairs of a "
+          f"{k}-keyframe store at gap {SFM_GAP} (loop search): bitwise, "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; invalid rows, an "
+          f"all-invalid keyframe and forced ties checked")
+    del packed, vt
+
+    # E over a verification chunk: 32 match sets in normalized coordinates
+    t0 = time.perf_counter()
+    cfg = sfm_config()
+    focal = 0.8 * SFM_W
+    w_est = 2.0 * cfg.camera.cx
+    radius = max(cfg.match.motion_radius_frac * w_est, 24.0) / focal
+    tau = max(cfg.match.motion_tau_frac * w_est, 8.0) / focal
+    c = sfm.VERIFY_CHUNK
+    xq = rng.uniform(-0.6, 0.6, (c, n, 2))
+    flow = 0.02 + 0.002 * rng.normal(size=(c, n, 2))
+    flow[:, : n // 3] = rng.uniform(-0.3, 0.3, (c, n // 3, 2))
+    xq_d = torch.from_numpy(xq.astype(np.float32)).to(dev)
+    xt_d = torch.from_numpy((xq - flow).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(rng.random((c, n)) < 0.8).to(dev)
+    args = (xq_d, xt_d, mask, radius, tau)
+    got = ck.motion_support(*args)
+    check_bitwise("motion_support (batched)", [got],
+                  [ck.motion_support_plain(*args)])
+    ms = cuda_ms(lambda: ck.motion_support(*args), 20)
+    plain_ms = cuda_ms(lambda: ck.motion_support_plain(*args), 3)
+    phase("kernel E motion_support, batched", t0,
+          f"{c} match sets x {n} (a verification chunk): bitwise (max "
+          f"support {int(got.max())}); kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms")
+    return records
+
+
+def count_syncs_in(fn):
+    """``fn()`` under torch's sync debug mode: (its result, the number of
+    host syncs, a Counter of their source lines)."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    new = [w for w in rec if "synchroniz" in str(w.message)]
+    return out, len(new), collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in new)
+
+
+def run_sfm(dev) -> dict:
+    """The Version-B main path at full width; returns the launch counts of
+    the timed run from host memory."""
+    import tempfile
+
+    import torch
+
+    from slam_loop_closing_tpu_torch.models import sfm
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    from slam_loop_closing_tpu_torch.utils.profiling import StageTimer
+    from slam_loop_closing_tpu_torch.utils.synth_video import orbit_sequence
+
+    t0 = time.perf_counter()
+    frames = to_u8(orbit_sequence(num_frames=SFM_FRAMES, h=SFM_H, w=SFM_W,
+                                  num_points=400))
+    cfg = sfm_config()
+
+    def build():
+        return sfm.SfMPipeline(cfg, max_keyframes=SFM_FRAMES,
+                               max_points=65536, max_obs=262144,
+                               log=lambda *a: None, use_scan=True, device=dev)
+
+    # warm-up, stage by stage; the keyframe pass counts its host syncs
+    pipe = build()
+    (state, _), syncs, sources = count_syncs_in(
+        lambda: pipe.run_frontend_and_keyframes_scan(frames))
+    pipe.run_backend(state, pipe.find_loop(state))
+    phase("slice SfM warm-up", t0, f"{SFM_FRAMES} x {SFM_H}x{SFM_W}; "
+          f"keyframe pass host syncs {syncs} in {SFM_FRAMES - 1} steps")
+    for src, cnt in sources.most_common():
+        print(f"  keyframe-pass sync source {src}: {cnt}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pipe = build()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.reset_launch_counts()
+        t_run = time.perf_counter()
+        res = pipe.run(frames, data_dir=tmp)
+        wall = time.perf_counter() - t_run
+        launches = dict(ck.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        obj = Path(res.obj_path)
+        if not (obj.is_file() and Path(tmp).resolve() in obj.resolve().parents):
+            raise AssertionError(f"no OBJ under the temporary directory: {obj}")
+        obj_vertices = obj.read_text().count("\nv ")
+    if not all(launches[k] for k in SFM_KERNELS):
+        raise AssertionError(f"a kernel of the path did not run: {launches}")
+    if not res.loop.found:
+        raise AssertionError("no loop closure on a closed-loop orbit")
+    if not res.reproj_final < res.reproj_before_ba:
+        raise AssertionError(f"BA did not lower the reprojection error: "
+                             f"{res.reproj_before_ba} -> {res.reproj_final}")
+    h = {k: int(getattr(res.state, k)) for k in
+         ("kf_count", "point_count", "obs_count")}
+    phase("slice SfMPipeline.run", t0,
+          f"{SFM_FRAMES} x {SFM_H}x{SFM_W} uint8 from host, "
+          f"ORB-{SFM_FEATURES} grid 8, 1024 hypotheses, use_scan: "
+          f"{wall:.3f} s = {SFM_FRAMES / wall:.2f} frames/s (OBJ included); "
+          f"keyframes {h['kf_count']}, points {h['point_count']}, "
+          f"observations {h['obs_count']}; loop {res.loop.curr_kf} <-> "
+          f"{res.loop.past_kf} ({res.loop.num_matches} matches, "
+          f"{res.loop.num_inliers} inliers, {res.loop.num_pose_inliers} pose "
+          f"inliers); reprojection {res.reproj_before_ba:.4f} -> "
+          f"{res.reproj_after_ba:.4f} -> {res.reproj_final:.4f} px; OBJ "
+          f"{obj_vertices} vertices; peak device memory {peak_gb:.2f} GB; "
+          f"launches {launches}")
+
+    # bench_reconstruct.py's contract: frames resident on the card, no OBJ
+    t0 = time.perf_counter()
+    frames_dev = torch.from_numpy(frames).to(dev)
+    walls = []
+    for _ in range(2):
+        pipe = build()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        res_dev = pipe.run(frames_dev, write_obj=False)
+        walls.append(time.perf_counter() - t_run)
+    if (res_dev.loop.curr_kf, res_dev.loop.past_kf) != (res.loop.curr_kf,
+                                                        res.loop.past_kf):
+        raise AssertionError("resident frames found another loop")
+    phase("slice SfMPipeline.run, frames resident", t0,
+          f"runs {', '.join(f'{w:.3f}' for w in walls)} s = "
+          f"{', '.join(f'{SFM_FRAMES / w:.2f}' for w in walls)} frames/s")
+
+    # stage split, each stage synchronized; the loop search's two device
+    # calls timed through the module's names
+    t0 = time.perf_counter()
+    timer = StageTimer(dev)
+    originals = {n: getattr(sfm, n) for n in ("_pair_ratio_counts",
+                                              "_verify_loop_scores")}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            with timer.stage(name):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    pipe = build()
+    try:
+        sfm._pair_ratio_counts = timed("  loop pair counts (F)",
+                                       originals["_pair_ratio_counts"])
+        sfm._verify_loop_scores = timed("  loop verification",
+                                        originals["_verify_loop_scores"])
+        with timer.stage("front-end"):
+            pipe._frontend(frames_dev)
+        with timer.stage("front-end + keyframe pass"):
+            state, _ = pipe.run_frontend_and_keyframes_scan(frames_dev)
+        with timer.stage("find_loop"):
+            loop = pipe.find_loop(state)
+        with timer.stage("backend"):
+            pipe.run_backend(state, loop)
+    finally:
+        for name, fn in originals.items():
+            setattr(sfm, name, fn)
+    split = {k: v * 1e3 for k, v in timer.stages.items()}
+    split["keyframe pass"] = (split["front-end + keyframe pass"]
+                              - split["front-end"])
+    phase("slice SfM stage split", t0, "ms, each stage synchronized: "
+          + ", ".join(f"{k.strip()} {v:.1f}" for k, v in split.items()))
+
+    # device idle share of one resident run; device activity only (see
+    # run_stream; with the CPU's op events the trace also takes minutes to
+    # read)
+    t0 = time.perf_counter()
+    pipe = build()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t_w = time.perf_counter()
+        pipe.run(frames_dev, write_obj=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_w
+    busy = sum(getattr(e, "self_device_time_total", 0.0)
+               for e in prof.key_averages()) / 1e6
+    phase("slice SfM idle share", t0, f"one resident run {wall:.3f} s under "
+          f"the profiler, device busy {busy:.3f} s (kernel time): idle "
+          f"share {max(0.0, 1.0 - busy / wall):.0%}")
+    return launches
+
+
+def sfm_fixture():
+    """(config, frames) of the 24-frame SfM fixture of the tests, at 512
+    RANSAC hypotheses."""
+    from slam_loop_closing_tpu_torch.config import (CameraConfig,
+                                                    KeyframeConfig,
+                                                    LoopVerifyConfig,
+                                                    OrbConfig, PipelineConfig,
+                                                    RansacConfig)
+    from slam_loop_closing_tpu_torch.utils.synth_video import orbit_sequence
+
+    cfg = dataclasses.replace(
+        PipelineConfig(),
+        camera=CameraConfig(fx=0.8 * 192, fy=0.8 * 192, cx=96.0, cy=72.0,
+                            k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0),
+        orb=OrbConfig(num_features=300, num_levels=2),
+        keyframe=KeyframeConfig(min_median_displacement=2.0,
+                                max_median_displacement=150.0,
+                                min_tracked_features=40, min_inlier_ratio=0.3,
+                                min_inliers=25),
+        loop_verify=LoopVerifyConfig(min_matches=40, min_inliers=30,
+                                     min_inlier_ratio=0.5,
+                                     min_pose_inliers=15),
+        ransac=RansacConfig(num_hypotheses=512))
+    return cfg, orbit_sequence(num_frames=24, h=144, w=192, num_points=250,
+                               seed=5)
+
+
+def check_sfm_agreement(dev) -> None:
+    """The 24-frame fixture through SfMPipeline.run on the CPU and on the
+    card, the CPU's RANSAC minimal sets replayed on the card."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.models import sfm
+
+    t0 = time.perf_counter()
+    cfg, frames = sfm_fixture()
+    drawn = []
+    draw = sfm._minimal_sets
+
+    def record(generator, mask, quality, rcfg):
+        idx = draw(generator, mask, quality, rcfg)
+        drawn.append(idx)
+        return idx
+
+    def replay(generator, mask, quality, rcfg):
+        idx = next(replayed)
+        if idx.shape[:-2] != mask.shape[:-1]:
+            raise AssertionError("the card draws minimal sets for other "
+                                 "match sets than the CPU")
+        return idx.to(mask.device)
+
+    out = {}
+    try:
+        for d, seam in (("cpu", record), (dev, replay)):
+            replayed = iter(drawn)
+            sfm._minimal_sets = seam
+            pipe = sfm.SfMPipeline(cfg, max_keyframes=32, max_points=8192,
+                                   max_obs=32768, log=lambda *a: None,
+                                   device=d)
+            front = [t.cpu() for t in pipe._frontend(frames)]
+            res = pipe.run(frames, write_obj=False)
+            k = int(res.state.kf_count)
+            out[d] = dict(
+                front=front, keyframes=res.state.kf_frame[:k].cpu().tolist(),
+                loop=(res.loop.found, res.loop.curr_kf, res.loop.past_kf,
+                      res.loop.num_matches),
+                inliers=np.array([res.loop.num_inliers,
+                                  res.loop.num_pose_inliers]),
+                counts=np.array([int(res.state.point_count),
+                                 int(res.state.obs_count)]),
+                errs=np.array([res.reproj_before_ba, res.reproj_after_ba,
+                               res.reproj_final]))
+    finally:
+        sfm._minimal_sets = draw
+    if next(replayed, None) is not None:
+        raise AssertionError("the card drew fewer minimal sets than the CPU")
+    cpu, card = out["cpu"], out[dev]
+    if not all(torch.equal(a, b) for a, b in zip(cpu["front"],
+                                                 card["front"])):
+        raise AssertionError("front-end outputs differ between cpu and card")
+    for key in ("keyframes", "loop"):
+        if cpu[key] != card[key]:
+            raise AssertionError(f"SfM {key} differ: cpu {cpu[key]} vs card "
+                                 f"{card[key]}")
+    d_inl = np.abs(card["inliers"] - cpu["inliers"])
+    rel_counts = np.abs(card["counts"] - cpu["counts"]) / cpu["counts"]
+    rel = np.abs(card["errs"] - cpu["errs"]) / cpu["errs"]
+    if (not cpu["loop"][0] or (d_inl > SFM_INLIERS_ATOL).any()
+            or (rel_counts > SFM_COUNT_RTOL).any() or (rel > SFM_RTOL).any()):
+        raise AssertionError(
+            f"cpu vs card: loop inliers {cpu['inliers']} vs "
+            f"{card['inliers']}, points/observations {cpu['counts']} vs "
+            f"{card['counts']}, reprojection errors {cpu['errs']} vs "
+            f"{card['errs']}")
+    phase("agreement SfM cpu vs card", t0,
+          f"24-frame fixture, same minimal sets: front-end bitwise, "
+          f"{len(cpu['keyframes'])} keyframes and loop {cpu['loop'][1:]} "
+          f"equal; loop inliers cpu {cpu['inliers'].tolist()} card "
+          f"{card['inliers'].tolist()}; points/observations cpu "
+          f"{cpu['counts'].tolist()} card {card['counts'].tolist()}; "
+          f"reprojection errors cpu {cpu['errs'].tolist()} card "
+          f"{card['errs'].tolist()}, max relative difference {rel.max():.2e}")
+
+
 def main() -> int:
     import torch
 
@@ -597,11 +1017,17 @@ def main() -> int:
     stream_launches = run_stream(frames, dev, video_loops)
     check_front_end_agreement(frames_dev, dev)
     check_cpu_agreement(dev)
+    del frames, frames_dev
+    torch.cuda.empty_cache()
+    records.update(check_sfm_kernels(dev))
+    sfm_launches = run_sfm(dev)
+    check_sfm_agreement(dev)
 
     kernels = [dict(name=k, route="cuda",
                     source=f"slam_loop_closing_tpu_torch/csrc/{SOURCES[k]}",
                     replaces=REPLACES[k],
-                    launches=video_launches[k] + stream_launches[k],
+                    launches=(video_launches[k] + stream_launches[k]
+                              + sfm_launches[k]),
                     **records[k])
                for k in ck.LAUNCHES]
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,8 @@
-// Hamming nearest neighbour: for every query row i of M 256-bit
+// Two Hamming nearest-neighbour kernels over 256-bit descriptors packed as
+// eight 32-bit words.
+//
+// Kernel D (hamming_nn_kernel). Hamming nearest neighbour: for every query
+// row i of M 256-bit
 // descriptors, the valid target row j of N that minimises hamming(q_i, t_j),
 // the lowest such j on ties:
 //   d1[i]  = min_j hamming(q_i, t_j)        over valid targets j
@@ -96,7 +100,95 @@ hamming_nn_kernel(const uint4* __restrict__ q, const uint4* __restrict__ t,
   }
 }
 
+// q: [fq, n_q, 2] uint4; t: [ft, n_t, 2] uint4; vq: [fq, n_q], vt: [ft, n_t]
+// uint8; qidx, tidx: [p] int32; d1, idx, d2: [p, n_q] int32. Block b
+// handles rows (b % row_blocks) * kWarps ... of pair b / row_blocks.
+__global__ void __launch_bounds__(kThreads)
+hamming_knn2_kernel(const uint4* __restrict__ q, const uint4* __restrict__ t,
+                    const uint8_t* __restrict__ vq,
+                    const uint8_t* __restrict__ vt,
+                    const int* __restrict__ qidx, const int* __restrict__ tidx,
+                    int* __restrict__ d1, int* __restrict__ idx,
+                    int* __restrict__ d2, int n_q, int n_t, int row_blocks) {
+  __shared__ uint4 st[kChunk][2];
+  __shared__ uint8_t sv[kChunk];
+  const int pair = blockIdx.x / row_blocks;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = (blockIdx.x % row_blocks) * kWarps + warp;
+  const size_t q_base = static_cast<size_t>(qidx[pair]) * n_q;
+  const size_t t_base = static_cast<size_t>(tidx[pair]) * n_t;
+  // every thread stays for the block's barriers; inactive rows only skip
+  // the scan
+  const bool active = row < n_q && vq[q_base + row] != 0;
+  uint4 qa = make_uint4(0, 0, 0, 0), qb = make_uint4(0, 0, 0, 0);
+  if (active) {
+    qa = q[2 * (q_base + row)];
+    qb = q[2 * (q_base + row) + 1];
+  }
+  int b1 = kBig, j1 = 0, b2 = kBig;
+  for (int t0 = 0; t0 < n_t; t0 += kChunk) {
+    __syncthreads();  // the previous chunk is no longer being read
+    for (int j = threadIdx.x; j < kChunk && t0 + j < n_t; j += kThreads) {
+      st[j][0] = t[2 * (t_base + t0 + j)];
+      st[j][1] = t[2 * (t_base + t0 + j) + 1];
+      sv[j] = vt[t_base + t0 + j];
+    }
+    __syncthreads();
+    if (!active) continue;
+    const int cnt = min(kChunk, n_t - t0);
+    for (int j = lane; j < cnt; j += 32) {
+      if (!sv[j]) continue;
+      const int d = ham(qa, qb, st[j][0], st[j][1]);
+      if (d < b1) {
+        b2 = b1;
+        b1 = d;
+        j1 = t0 + j;
+      } else if (d < b2) {
+        b2 = d;
+      }
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const int ob1 = __shfl_xor_sync(0xffffffffu, b1, o);
+    const int oj1 = __shfl_xor_sync(0xffffffffu, j1, o);
+    const int ob2 = __shfl_xor_sync(0xffffffffu, b2, o);
+    if (ob1 < b1 || (ob1 == b1 && oj1 < j1)) {
+      b2 = min(ob2, b1);
+      b1 = ob1;
+      j1 = oj1;
+    } else {
+      b2 = min(b2, ob1);
+    }
+  }
+  if (lane == 0 && row < n_q) {
+    const size_t o = static_cast<size_t>(pair) * n_q + row;
+    d1[o] = b1;
+    idx[o] = j1;
+    d2[o] = b2;
+  }
+}
+
 }  // namespace
+
+extern "C" int slam_hamming_knn2(const void* q, const void* t, const void* vq,
+                                 const void* vt, const void* qidx,
+                                 const void* tidx, void* d1, void* idx,
+                                 void* d2, int p, int n_q, int n_t,
+                                 void* stream) {
+  if (p > 0 && n_q > 0) {
+    const int row_blocks = (n_q + kWarps - 1) / kWarps;
+    const unsigned blocks = static_cast<unsigned>(p) *
+                            static_cast<unsigned>(row_blocks);
+    hamming_knn2_kernel<<<blocks, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint4*>(q), static_cast<const uint4*>(t),
+        static_cast<const uint8_t*>(vq), static_cast<const uint8_t*>(vt),
+        static_cast<const int*>(qidx), static_cast<const int*>(tidx),
+        static_cast<int*>(d1), static_cast<int*>(idx), static_cast<int*>(d2),
+        n_q, n_t, row_blocks);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int slam_hamming_nn(const void* q, const void* t, const void* vq,
                                const void* vt, void* d1, void* idx, int m,

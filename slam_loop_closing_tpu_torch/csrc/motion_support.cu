@@ -4,7 +4,8 @@
 //   agree(i, j) = (dx_i - dx_j)^2 + (dy_i - dy_j)^2 < t2
 //   out[i] = mask_i ? #{j : mask_j & near & agree} - 1 : 0
 // (the -1 removes i's support of itself). r2 and t2 are the radius and tau
-// squared once in float32 by the caller.
+// squared once in float32 by the caller. A launch takes a batch of such
+// match sets (the loop search's candidate pairs), one per blockIdx.y.
 //
 // Replaces: slam_loop_closing_tpu/ops/pallas_kernels.py, _support_kernel
 // (via motion_support_pallas). Same direct-difference formula (not the GEMM
@@ -34,13 +35,18 @@ __device__ __forceinline__ float sq_dist(float ax, float ay, float bx,
   return __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey));
 }
 
-// q: [n] float4 (x, y, dx, dy); mask: [n] uint8; out: [n] int32
+// q: [batch, n] float4 (x, y, dx, dy); mask: [batch, n] uint8;
+// out: [batch, n] int32
 __global__ void __launch_bounds__(kThreads)
 motion_support_kernel(const float4* __restrict__ q,
                       const uint8_t* __restrict__ mask, int* __restrict__ out,
                       int n, float r2, float t2) {
   __shared__ float4 sq[kChunk];
   __shared__ uint8_t sm[kChunk];
+  const size_t base = static_cast<size_t>(blockIdx.y) * n;
+  q += base;
+  mask += base;
+  out += base;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const float4 me = i < n ? q[i] : make_float4(0.f, 0.f, 0.f, 0.f);
   int cnt = 0;
@@ -65,9 +71,11 @@ motion_support_kernel(const float4* __restrict__ q,
 }  // namespace
 
 extern "C" int slam_motion_support(const void* q, const void* mask, void* out,
-                                   int n, float r2, float t2, void* stream) {
-  if (n > 0) {
-    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+                                   int batch, int n, float r2, float t2,
+                                   void* stream) {
+  if (batch > 0 && n > 0) {
+    const dim3 blocks(static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                      static_cast<unsigned>(batch));
     motion_support_kernel<<<blocks, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(q), static_cast<const uint8_t*>(mask),

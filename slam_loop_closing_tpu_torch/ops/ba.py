@@ -1,0 +1,191 @@
+"""Alternating bundle adjustment: motion-only and structure-only Gauss-Newton
+over all cameras / all points at once.
+
+Port of :mod:`slam_loop_closing_tpu.ops.ba` (reference ``refineCameraPoseGN``
+main.cpp:632-743, ``refinePointGN`` main.cpp:757-858,
+``computeReprojectionError`` main.cpp:871-896,
+``alternatingBundleAdjustment`` main.cpp:905-943). Each pass is one vmapped
+forward-mode Jacobian over all observations (``torch.func``), an
+``index_add_`` assembling per-camera 6x6 (or per-point 3x3) normal
+equations, and one batched solve: the 3x3 closed form of
+:func:`..epipolar._solve3x3`, the 6x6 through ``torch.linalg.solve_ex`` (no
+info readback). Iteration counts are fixed and the LM acceptance is a
+per-camera / per-point select, so nothing is read back.
+
+On the card the scatter-adds are float atomics: their sum order, and so the
+last bits of the result, vary from run to run (ROADMAP R10).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from slam_loop_closing_tpu_torch.config import BaConfig
+from slam_loop_closing_tpu_torch.ops import epipolar, lie
+
+
+class Observations(NamedTuple):
+    cam: torch.Tensor    # [O] int32 camera index
+    point: torch.Tensor  # [O] int32 point index
+    uv: torch.Tensor     # [O, 2] float32 pixel measurement
+    valid: torch.Tensor  # [O] bool
+
+
+def _project_params(K: torch.Tensor, cam_params: torch.Tensor,
+                    X: torch.Tensor) -> torch.Tensor:
+    """Projection as a smooth function of [..., 6] camera params (the
+    function whose autodiff Jacobian replaces the reference's central
+    differences, main.cpp:676-696)."""
+    R, t = lie.params_to_pose(cam_params)
+    Xc = (R @ X[..., None])[..., 0] + t
+    z = Xc[..., 2]
+    z_safe = torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+    return torch.stack([K[0, 0] * Xc[..., 0] / z_safe + K[0, 2],
+                        K[1, 1] * Xc[..., 1] / z_safe + K[1, 2]], dim=-1)
+
+
+def _obs_residual(K, cam_params, X, uv):
+    return _project_params(K, cam_params, X) - uv
+
+
+def reprojection_errors(K: torch.Tensor, cam_params: torch.Tensor,
+                        points: torch.Tensor, obs: Observations) -> torch.Tensor:
+    """[O] pixel reprojection error per observation (0 where invalid)."""
+    r = _obs_residual(K, cam_params[obs.cam.long()],
+                      points[obs.point.long()], obs.uv)
+    e = torch.sqrt(torch.sum(r * r, dim=-1))
+    return torch.where(obs.valid, e, 0.0)
+
+
+def mean_reprojection_error(K, cam_params, points,
+                            obs: Observations) -> torch.Tensor:
+    """Mean pixel error over valid observations (reference
+    ``computeReprojectionError`` main.cpp:871-896, the figure printed
+    before/after BA, main.cpp:1543-1555)."""
+    e = reprojection_errors(K, cam_params, points, obs)
+    n = torch.sum(obs.valid, dtype=torch.float32)
+    return torch.sum(e) / torch.clamp_min(n, 1.0)
+
+
+def _per_obs_jacobians(K, cam_params, points, obs: Observations, argnum: int):
+    """[O, 2] residuals and [O, 2, d] Jacobians with respect to the observing
+    camera (``argnum`` 1, d = 6) or the observed point (2, d = 3)."""
+    cp = cam_params[obs.cam.long()]
+    X = points[obs.point.long()]
+    r = _obs_residual(K, cp, X, obs.uv)
+    J = torch.func.vmap(torch.func.jacfwd(_obs_residual, argnums=argnum),
+                        in_dims=(None, 0, 0, 0))(K, cp, X, obs.uv)
+    r = torch.where(obs.valid[:, None], r, 0.0)
+    # (a float64 tangent can arise under jacfwd, as in ..pgo)
+    J = torch.where(obs.valid[:, None, None], J, 0.0).to(r.dtype)
+    return r, J
+
+
+def _solve_damped(H: torch.Tensor, g: torch.Tensor,
+                  damping: float) -> torch.Tensor:
+    """Batched solve of (H + damping I) delta = -g for [B, d, d] blocks with
+    the reference's fixed LM damping (main.cpp:676, 800): 3x3 by the closed
+    form, larger blocks by ``solve_ex``."""
+    d = H.shape[-1]
+    Hd = H + damping * torch.eye(d, dtype=H.dtype, device=H.device)
+    if d == 3:
+        return -epipolar._solve3x3(Hd, g)
+    return -torch.linalg.solve_ex(Hd, g[..., None])[0][..., 0]
+
+
+def _scatter_sum(n: int, index: torch.Tensor, values: torch.Tensor):
+    out = torch.zeros((n, *values.shape[1:]), dtype=values.dtype,
+                      device=values.device)
+    return out.index_add_(0, index.long(), values)
+
+
+def _refine(K, cam_params, points, obs: Observations, argnum: int,
+            movable, iterations: int, damping: float):
+    """Shared Gauss-Newton loop of :func:`refine_cameras` (``argnum`` 1)
+    and :func:`refine_points` (2), with per-entity LM acceptance: a step is
+    kept only where that camera's (point's) total squared error does not
+    grow and stays finite (points behind a camera give exploding 1/z
+    Jacobians that otherwise diverge to NaN)."""
+    group = obs.cam if argnum == 1 else obs.point
+    x0 = cam_params if argnum == 1 else points
+    n = x0.shape[0]
+
+    def args(x):
+        return (x, points) if argnum == 1 else (cam_params, x)
+
+    def errs(x):
+        return _scatter_sum(n, group,
+                            reprojection_errors(K, *args(x), obs) ** 2)
+
+    x, err_x = x0, errs(x0)
+    for _ in range(iterations):
+        r, J = _per_obs_jacobians(K, *args(x), obs, argnum)
+        H = _scatter_sum(n, group, torch.einsum("oik,oil->okl", J, J))
+        g = _scatter_sum(n, group, torch.einsum("oik,oi->ok", J, r))
+        delta = torch.where(movable[:, None], _solve_damped(H, g, damping),
+                            0.0)
+        cand = x + delta
+        err_cand = errs(cand)
+        better = (err_cand <= err_x) & torch.all(torch.isfinite(cand), dim=1)
+        x = torch.where(better[:, None], cand, x)
+        err_x = torch.where(better, err_cand, err_x)
+    return x
+
+
+def refine_cameras(K: torch.Tensor, cam_params: torch.Tensor,
+                   points: torch.Tensor, obs: Observations,
+                   fixed_mask: torch.Tensor | None = None,
+                   iterations: int = 5, damping: float = 1e-3,
+                   min_observations: int = 10) -> torch.Tensor:
+    """Motion-only GN for all cameras at once (reference
+    ``refineCameraPoseGN`` main.cpp:632-743). Cameras with fewer than
+    ``min_observations`` valid observations stay (main.cpp:648);
+    ``fixed_mask`` freezes more (camera 0 during BA)."""
+    counts = _scatter_sum(cam_params.shape[0], obs.cam,
+                          obs.valid.to(torch.int32))
+    movable = counts >= min_observations
+    if fixed_mask is not None:
+        movable = movable & ~fixed_mask
+    return _refine(K, cam_params, points, obs, 1, movable, iterations,
+                   damping)
+
+
+def refine_points(K: torch.Tensor, cam_params: torch.Tensor,
+                  points: torch.Tensor, obs: Observations,
+                  point_valid: torch.Tensor | None = None,
+                  iterations: int = 5, damping: float = 1e-3,
+                  min_observations: int = 2) -> torch.Tensor:
+    """Structure-only GN for all points at once (reference
+    ``refinePointGN`` main.cpp:757-858)."""
+    counts = _scatter_sum(points.shape[0], obs.point,
+                          obs.valid.to(torch.int32))
+    movable = counts >= min_observations
+    if point_valid is not None:
+        movable = movable & point_valid
+    return _refine(K, cam_params, points, obs, 2, movable, iterations,
+                   damping)
+
+
+def alternating_ba(K: torch.Tensor, cam_params: torch.Tensor,
+                   points: torch.Tensor, obs: Observations,
+                   point_valid: torch.Tensor | None = None,
+                   cfg: BaConfig = BaConfig(),
+                   outer_iterations: int | None = None):
+    """Alternating BA (reference main.cpp:905-943): each outer iteration
+    refines every camera (points fixed), then every point (cameras fixed).
+    Camera 0 stays fixed as the gauge. Returns (cam_params, points,
+    [outer] mean reprojection errors)."""
+    outer = cfg.outer_iterations if outer_iterations is None \
+        else outer_iterations
+    fixed = torch.arange(cam_params.shape[0], device=cam_params.device) == 0
+    cp, pts, errs = cam_params, points, []
+    for _ in range(outer):
+        cp = refine_cameras(K, cp, pts, obs, fixed, cfg.camera_gn_iterations,
+                            cfg.camera_damping, cfg.min_camera_observations)
+        pts = refine_points(K, cp, pts, obs, point_valid,
+                            cfg.point_gn_iterations, cfg.point_damping,
+                            cfg.min_point_observations)
+        errs.append(mean_reprojection_error(K, cp, pts, obs))
+    return cp, pts, torch.stack(errs)

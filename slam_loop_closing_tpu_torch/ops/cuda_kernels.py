@@ -1,5 +1,5 @@
-"""Wrappers of the hand-written CUDA kernels of the Version-A loop detector —
-the counterpart of :mod:`slam_loop_closing_tpu.ops.pallas_kernels`.
+"""Wrappers of the port's hand-written CUDA kernels — the counterpart of
+:mod:`slam_loop_closing_tpu.ops.pallas_kernels`.
 
 Each wrapper dispatches on the device of the tensors it is given:
 
@@ -21,6 +21,7 @@ band_count_tiles       csrc/band_counts.cu            ``_band_d1_kernel`` and
                                                       ``_band_counts_kernel``
 pair_counts            csrc/band_counts.cu            ``_pair_d1_kernel``
 hamming_nn             csrc/hamming_nn.cu             ``_hamming_nn_kernel``
+hamming_knn2           csrc/hamming_nn.cu             ``_hamming_knn2_kernel``
 motion_support         csrc/motion_support.cu         ``_support_kernel``
 =====================  =============================  ==========================
 """
@@ -41,7 +42,7 @@ from slam_loop_closing_tpu_torch.utils import cuda_build
 
 LAUNCHES = {"fast_score_nms_blur": 0, "extract_patches": 0,
             "band_count_tiles": 0, "pair_counts": 0, "hamming_nn": 0,
-            "motion_support": 0}
+            "hamming_knn2": 0, "motion_support": 0}
 
 
 def reset_launch_counts() -> None:
@@ -302,14 +303,93 @@ def hamming_nn(packed_q: torch.Tensor, valid_q: torch.Tensor,
     packed_t = packed_t.contiguous()
     _require(packed_q.data_ptr() % 16 == 0 and packed_t.data_ptr() % 16 == 0,
              "packed words must be 16-byte aligned")
+    # converted copies stay bound until the launch returns: a temporary
+    # freed inside the argument list hands its block to the next one
+    valid_q = valid_q.contiguous().view(torch.uint8)
+    valid_t = valid_t.contiguous().view(torch.uint8)
     m, n = packed_q.shape[0], packed_t.shape[0]
     d1 = torch.empty(m, dtype=torch.int32, device=packed_q.device)
     idx = torch.empty(m, dtype=torch.int32, device=packed_q.device)
     _launch("hamming_nn", packed_q.device, packed_q.data_ptr(),
-            packed_t.data_ptr(), valid_q.contiguous().view(torch.uint8)
-            .data_ptr(), valid_t.contiguous().view(torch.uint8).data_ptr(),
+            packed_t.data_ptr(), valid_q.data_ptr(), valid_t.data_ptr(),
             d1.data_ptr(), idx.data_ptr(), m, n)
     return d1, idx
+
+
+# --------------------------------------------------------------------------
+# F: Hamming top-2 of frame pairs
+# --------------------------------------------------------------------------
+
+_KNN2_PAIRS_PER_PASS = 64   # bounds the plain version's [P, N, M] block
+
+
+def hamming_knn2_plain(packed_q: torch.Tensor, valid_q: torch.Tensor,
+                       packed_t: torch.Tensor, valid_t: torch.Tensor,
+                       qidx: torch.Tensor, tidx: torch.Tensor):
+    """Hamming top-2 of the frame pairs (``qidx[p]``, ``tidx[p]``) of the
+    stores ``packed_q`` [Fq, N, 8] / ``packed_t`` [Ft, M, 8] int32 with
+    validity ``valid_q`` [Fq, N] / ``valid_t`` [Ft, M]: ([P, N] d1, idx, d2)
+    int32, :func:`..matching.knn2` of :func:`..matching.hamming_matrix` of
+    the unpacked +-1 rows (the JAX package's reference path: masked pairs at
+    2^30, the first index of the minimum, d2 the minimum over the other
+    columns), a bounded number of pairs at a time."""
+    outs = []
+    for s in range(0, qidx.shape[0], _KNN2_PAIRS_PER_PASS):
+        qi = qidx[s:s + _KNN2_PAIRS_PER_PASS].long()
+        ti = tidx[s:s + _KNN2_PAIRS_PER_PASS].long()
+        k = matching.knn2(
+            matching.hamming_matrix(_signed_frames(packed_q, qi),
+                                    _signed_frames(packed_t, ti)),
+            valid_q.index_select(0, qi), valid_t.index_select(0, ti))
+        outs.append((k.d1, k.idx1, k.d2))
+    if not outs:
+        empty = torch.zeros((0, packed_q.shape[1]), dtype=torch.int32,
+                            device=packed_q.device)
+        return empty, empty.clone(), empty.clone()
+    return tuple(torch.cat(o).to(torch.int32) for o in zip(*outs))
+
+
+def hamming_knn2(packed_q: torch.Tensor, valid_q: torch.Tensor,
+                 packed_t: torch.Tensor, valid_t: torch.Tensor,
+                 qidx: torch.Tensor, tidx: torch.Tensor):
+    """:func:`hamming_knn2_plain`; on CUDA tensors one launch of kernel F
+    over the whole pair list (a warp per query row, XOR + ``__popc``). The
+    pairs index the stores in place (``qidx``/``tidx`` stay on the device:
+    they must lie in range, as the plain version's ``index_select`` checks).
+    Bitwise equal to the plain version.
+
+    Unlike the TPU kernel, which leaves invalid query rows unmasked, an
+    invalid query row gets (2^30, 0, 2^30) here, as on the JAX package's
+    reference path."""
+    for w, v, name in ((packed_q, valid_q, "query"), (packed_t, valid_t,
+                                                       "target")):
+        _require(w.dim() == 3 and w.shape[2] == desc_ops.WORDS
+                 and w.dtype == torch.int32,
+                 f"{name} words must be [frames, rows, 8] int32")
+        _require(v.shape == w.shape[:2] and v.dtype == torch.bool,
+                 f"{name} validity must be [frames, rows] bool")
+    _require(qidx.shape == tidx.shape and qidx.dim() == 1,
+             "qidx and tidx must be [P]")
+    if not _on_cuda(packed_q, valid_q, packed_t, valid_t, qidx, tidx):
+        return hamming_knn2_plain(packed_q, valid_q, packed_t, valid_t, qidx,
+                                  tidx)
+    packed_q = packed_q.contiguous()
+    packed_t = packed_t.contiguous()
+    _require(packed_q.data_ptr() % 16 == 0 and packed_t.data_ptr() % 16 == 0,
+             "packed words must be 16-byte aligned")
+    # converted copies stay bound until the launch returns (see hamming_nn)
+    valid_q = valid_q.contiguous().view(torch.uint8)
+    valid_t = valid_t.contiguous().view(torch.uint8)
+    qidx = qidx.to(torch.int32).contiguous()
+    tidx = tidx.to(torch.int32).contiguous()
+    p_cnt, n_q, n_t = qidx.shape[0], packed_q.shape[1], packed_t.shape[1]
+    out = [torch.empty((p_cnt, n_q), dtype=torch.int32,
+                       device=packed_q.device) for _ in range(3)]
+    _launch("hamming_knn2", packed_q.device, packed_q.data_ptr(),
+            packed_t.data_ptr(), valid_q.data_ptr(), valid_t.data_ptr(),
+            qidx.data_ptr(), tidx.data_ptr(), *(o.data_ptr() for o in out),
+            p_cnt, n_q, n_t)
+    return tuple(out)
 
 
 # --------------------------------------------------------------------------
@@ -325,44 +405,48 @@ def _square_f32(x: float) -> float:
 def motion_support_plain(xy_q: torch.Tensor, xy_t_matched: torch.Tensor,
                          mask: torch.Tensor, radius: float,
                          tau: float) -> torch.Tensor:
-    """[N] int32 motion-coherence support by the TPU kernel's direct
-    differences: match j supports i when ``(x_i - x_j)^2 + (y_i - y_j)^2 <
-    radius^2`` and the displacements ``xy_q - xy_t_matched`` agree within
-    ``tau`` the same way; self-support excluded, 0 on invalid rows. Each
-    square is ``d * d`` and each sum one rounding, as in the kernel."""
+    """[..., N] int32 motion-coherence support of [..., N, 2] match sets by
+    the TPU kernel's direct differences: match j supports i when ``(x_i -
+    x_j)^2 + (y_i - y_j)^2 < radius^2`` and the displacements ``xy_q -
+    xy_t_matched`` agree within ``tau`` the same way; self-support excluded,
+    0 on invalid rows. Each square is ``d * d`` and each sum one rounding,
+    as in the kernel."""
     disp = xy_q - xy_t_matched
     r2, t2 = _square_f32(radius), _square_f32(tau)
 
     def sq_dist(a):
-        ex = a[:, None, 0] - a[None, :, 0]
-        ey = a[:, None, 1] - a[None, :, 1]
+        ex = a[..., :, None, 0] - a[..., None, :, 0]
+        ey = a[..., :, None, 1] - a[..., None, :, 1]
         return ex * ex + ey * ey
 
-    ok = (sq_dist(xy_q) < r2) & (sq_dist(disp) < t2) & mask[None, :]
-    s = torch.sum(ok, dim=1, dtype=torch.int32)
+    ok = (sq_dist(xy_q) < r2) & (sq_dist(disp) < t2) & mask[..., None, :]
+    s = torch.sum(ok, dim=-1, dtype=torch.int32)
     return torch.where(mask, s - 1, 0).to(torch.int32)
 
 
 def motion_support(xy_q: torch.Tensor, xy_t_matched: torch.Tensor,
                    mask: torch.Tensor, radius: float,
                    tau: float) -> torch.Tensor:
-    """:func:`motion_support_plain` of [N, 2] float32 points, as one kernel
-    on CUDA tensors (a thread per query match, the match set staged in
-    shared memory, no FMA contraction). Bitwise equal to the plain
-    version."""
-    _require(xy_q.dim() == 2 and xy_q.shape[1] == 2
+    """:func:`motion_support_plain` of [N, 2] float32 points, or of a batch
+    [B, N, 2] of match sets, as one kernel launch on CUDA tensors (a thread
+    per query match, the match set staged in shared memory, no FMA
+    contraction). Bitwise equal to the plain version."""
+    _require(xy_q.dim() in (2, 3) and xy_q.shape[-1] == 2
              and xy_q.dtype == torch.float32
              and xy_t_matched.shape == xy_q.shape
              and xy_t_matched.dtype == torch.float32,
-             "points must be [N, 2] float32")
-    _require(mask.shape == xy_q.shape[:1] and mask.dtype == torch.bool,
-             "mask must be [N] bool")
+             "points must be [N, 2] or [B, N, 2] float32")
+    _require(mask.shape == xy_q.shape[:-1] and mask.dtype == torch.bool,
+             "mask must be [N] or [B, N] bool")
     if not _on_cuda(xy_q, xy_t_matched, mask):
         return motion_support_plain(xy_q, xy_t_matched, mask, radius, tau)
-    q = torch.cat([xy_q, xy_q - xy_t_matched], dim=1).contiguous()  # [N, 4]
+    q = torch.cat([xy_q, xy_q - xy_t_matched], dim=-1).contiguous()
     _require(q.data_ptr() % 16 == 0, "point buffer must be 16-byte aligned")
-    out = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
-    _launch("motion_support", q.device, q.data_ptr(),
-            mask.contiguous().view(torch.uint8).data_ptr(), out.data_ptr(),
-            q.shape[0], _square_f32(radius), _square_f32(tau))
+    batch = q.shape[0] if q.dim() == 3 else 1
+    _require(batch <= 65535, "at most 65535 match sets per launch")
+    mask = mask.contiguous().view(torch.uint8)   # bound until the launch
+    out = torch.empty(q.shape[:-1], dtype=torch.int32, device=q.device)
+    _launch("motion_support", q.device, q.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), batch, q.shape[-2], _square_f32(radius),
+            _square_f32(tau))
     return out

@@ -4,8 +4,10 @@ DLT triangulation, and the keyframe-gating metrics.
 Port of :mod:`slam_loop_closing_tpu.ops.epipolar`. Everything works on
 fixed-size padded point arrays with boolean validity masks, in normalized
 camera coordinates (pixels divided through K), float32 throughout. Functions
-that the JAX package vmaps take a leading batch here instead: the minimal
-solver over hypotheses, the cheirality vote over the four pose candidates.
+that the JAX package vmaps take leading batch axes here instead: the minimal
+solver over hypotheses, the cheirality vote over the four pose candidates,
+and the 8-point solve, Sampson errors and pose recovery over the candidate
+pairs of the SfM loop search (``[..., N, 2]`` points).
 
 On a CUDA device every function is a short chain of PyTorch kernels; the
 small SVDs and the QR go through ``torch.linalg`` (cuSOLVER), and each
@@ -112,11 +114,13 @@ def essential_eight_point(x1: torch.Tensor, x2: torch.Tensor,
     """Weighted 8-point essential-matrix solve on normalized coordinates:
     QR-reduce the weighted [N, 9] design, take the smallest right singular
     vector of the 9x9 R (the same vector as the SVD of the design, without
-    squaring its condition number), project onto the essential manifold."""
-    Aw = epipolar_design(x1, x2) * weights[:, None]
-    R = torch.linalg.qr(Aw, mode="r").R                  # [9, 9]
+    squaring its condition number), project onto the essential manifold.
+    Batched over leading axes of [..., N, 2] points and [..., N] weights."""
+    Aw = epipolar_design(x1, x2) * weights[..., None]
+    R = torch.linalg.qr(Aw, mode="r").R                  # [..., 9, 9]
     Vt9 = torch.linalg.svd(R, full_matrices=True).Vh
-    return project_to_essential(Vt9[-1].reshape(3, 3))
+    return project_to_essential(Vt9[..., -1, :].reshape(*Vt9.shape[:-2], 3,
+                                                         3))
 
 
 def essential_eight_point_fast(x1: torch.Tensor, x2: torch.Tensor,
@@ -132,10 +136,11 @@ def essential_eight_point_fast(x1: torch.Tensor, x2: torch.Tensor,
 
 def sampson_error(E: torch.Tensor, x1: torch.Tensor,
                   x2: torch.Tensor) -> torch.Tensor:
-    """First-order (Sampson) squared epipolar error of [N] correspondences
-    under ``E`` [..., 3, 3] -> [..., N], normalized coordinates."""
-    x1h = torch.cat([x1, torch.ones_like(x1[:, :1])], dim=-1)   # [N, 3]
-    x2h = torch.cat([x2, torch.ones_like(x2[:, :1])], dim=-1)
+    """First-order (Sampson) squared epipolar error of [..., N]
+    correspondences under ``E`` [..., 3, 3] -> [..., N], normalized
+    coordinates; the leading axes of the points and of E broadcast."""
+    x1h = torch.cat([x1, torch.ones_like(x1[..., :1])], dim=-1)  # [..., N, 3]
+    x2h = torch.cat([x2, torch.ones_like(x2[..., :1])], dim=-1)
     Ex1 = x1h @ E.transpose(-1, -2)      # [..., N, 3] = (E @ x1h^T)^T
     Etx2 = x2h @ E                       # [..., N, 3] = (E^T @ x2h^T)^T
     num = torch.sum(x2h * Ex1, dim=-1) ** 2
@@ -145,12 +150,13 @@ def sampson_error(E: torch.Tensor, x1: torch.Tensor,
 
 
 def decompose_essential(E: torch.Tensor):
-    """E -> the four (R, t) candidates (R1,t), (R1,-t), (R2,t), (R2,-t)
-    (cv::decomposeEssentialMat: R1 = U W V^T, R2 = U W^T V^T, t = u3, with
-    determinant sign fixes so R are proper rotations)."""
+    """E [..., 3, 3] -> the four (R, t) candidates (R1,t), (R1,-t), (R2,t),
+    (R2,-t) as ([..., 4, 3, 3], [..., 4, 3]) (cv::decomposeEssentialMat:
+    R1 = U W V^T, R2 = U W^T V^T, t = u3, with determinant sign fixes so R
+    are proper rotations)."""
     U, _, Vt = torch.linalg.svd(E)
-    U = U * torch.sign(_det3(U))
-    Vt = Vt * torch.sign(_det3(Vt))
+    U = U * torch.sign(_det3(U))[..., None, None]
+    Vt = Vt * torch.sign(_det3(Vt))[..., None, None]
     # W = [[0, -1, 0], [1, 0, 0], [0, 0, 1]] from the identity's rows, on
     # the device (a host tensor, or a write of a Python scalar into a CUDA
     # tensor, is a host sync)
@@ -158,8 +164,9 @@ def decompose_essential(E: torch.Tensor):
     W = torch.stack([-e[1], e[0], e[2]])
     R1 = U @ W @ Vt
     R2 = U @ W.T @ Vt
-    t = U[:, 2]
-    return torch.stack([R1, R1, R2, R2]), torch.stack([t, -t, t, -t])
+    t = U[..., :, 2]
+    return (torch.stack([R1, R1, R2, R2], dim=-3),
+            torch.stack([t, -t, t, -t], dim=-2))
 
 
 def _projections(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -168,13 +175,13 @@ def _projections(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def _dlt_rows(R1, t1, R2, t2, x1, x2) -> torch.Tensor:
     """The 4x4 DLT systems of every correspondence, [..., N, 4, 4], with
-    leading pose axes broadcast."""
+    the leading axes of the poses and of the [..., N, 2] points broadcast."""
     P1, P2 = _projections(R1, t1), _projections(R2, t2)
     parts = torch.broadcast_tensors(
-        x1[:, 0:1] * P1[..., None, 2, :] - P1[..., None, 0, :],
-        x1[:, 1:2] * P1[..., None, 2, :] - P1[..., None, 1, :],
-        x2[:, 0:1] * P2[..., None, 2, :] - P2[..., None, 0, :],
-        x2[:, 1:2] * P2[..., None, 2, :] - P2[..., None, 1, :])
+        x1[..., 0:1] * P1[..., None, 2, :] - P1[..., None, 0, :],
+        x1[..., 1:2] * P1[..., None, 2, :] - P1[..., None, 1, :],
+        x2[..., 0:1] * P2[..., None, 2, :] - P2[..., None, 0, :],
+        x2[..., 1:2] * P2[..., None, 2, :] - P2[..., None, 1, :])
     return torch.stack(parts, dim=-2)
 
 
@@ -240,12 +247,15 @@ def depths(R: torch.Tensor, t: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
 
 def cheirality_counts(Rs: torch.Tensor, ts: torch.Tensor, x1: torch.Tensor,
                       x2: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """For each of the [C] (R, t) candidates, the number of masked points
-    that triangulate in front of BOTH cameras (cv::recoverPose's vote)."""
+    """For each of the [..., C] (R, t) candidates, the number of masked
+    points of [..., N] that triangulate in front of BOTH cameras
+    (cv::recoverPose's vote)."""
     eye = torch.eye(3, dtype=Rs.dtype, device=Rs.device)
     zero = torch.zeros(3, dtype=Rs.dtype, device=Rs.device)
-    X = triangulate_linear(eye, zero, Rs, ts, x1, x2)     # [C, N, 3]
-    ok = (depths(eye, zero, X) > 0) & (depths(Rs, ts, X) > 0) & mask
+    X = triangulate_linear(eye, zero, Rs, ts, x1[..., None, :, :],
+                           x2[..., None, :, :])           # [..., C, N, 3]
+    ok = ((depths(eye, zero, X) > 0) & (depths(Rs, ts, X) > 0)
+          & mask[..., None, :])
     return torch.sum(ok, dim=-1, dtype=torch.int32)
 
 
@@ -253,16 +263,18 @@ def recover_pose(E: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
                  mask: torch.Tensor):
     """cv::recoverPose equivalent (reference main.cpp:596-601): the (R, t)
     candidate with the best cheirality vote among masked inliers (the first
-    on a tie). Returns (R, t, pose_inlier_mask, num_pose_inliers)."""
+    on a tie). Returns (R, t, pose_inlier_mask, num_pose_inliers); batched
+    over leading axes of E [..., 3, 3] and the points [..., N, 2]."""
     Rs, ts = decompose_essential(E)
-    best = torch.argmax(cheirality_counts(Rs, ts, x1, x2, mask)).reshape(1)
-    R = Rs.index_select(0, best)[0]
-    t = ts.index_select(0, best)[0]
+    best = torch.argmax(cheirality_counts(Rs, ts, x1, x2, mask), dim=-1)
+    R = torch.take_along_dim(Rs, best[..., None, None, None], dim=-3)[..., 0,
+                                                                     :, :]
+    t = torch.take_along_dim(ts, best[..., None, None], dim=-2)[..., 0, :]
     eye = torch.eye(3, dtype=E.dtype, device=E.device)
     zero = torch.zeros(3, dtype=E.dtype, device=E.device)
     X = triangulate_linear(eye, zero, R, t, x1, x2)
     pose_mask = (depths(eye, zero, X) > 0) & (depths(R, t, X) > 0) & mask
-    return R, t, pose_mask, torch.sum(pose_mask, dtype=torch.int32)
+    return R, t, pose_mask, torch.sum(pose_mask, dim=-1, dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
-"""Version-A descriptor matching: Hamming nearest neighbours with the
-2 x min-distance rule, the banded all-pairs good-match counts behind the
-loop-similarity matrix, and the motion-coherence quality that PROSAC ranks
-matches by.
+"""Descriptor matching: Hamming nearest neighbours with the 2 x min-distance
+rule, the banded all-pairs good-match counts behind the loop-similarity
+matrix, the Lowe-ratio matching of the Version-B pipeline, and the
+motion-coherence quality that PROSAC ranks matches by.
 
-Port of the Version-A half of :mod:`slam_loop_closing_tpu.ops.matching`.
+Port of :mod:`slam_loop_closing_tpu.ops.matching` (the SIFT path's
+``ratio_matches_l2`` waits for the SIFT front-end).
 The per-pair rule (README.md:116-117 of the reference): each query
 descriptor's nearest valid target at Hamming distance ``d1``; a match is good
 when ``d1 < max(scale * min d1, 30)``. :func:`nn_matches_2xmin` keeps the
@@ -11,7 +12,9 @@ matches themselves (nearest-neighbour kernel D); :func:`banded_pair_counts`
 counts them for every frame pair ``t <= q - min_gap`` (band-count kernel C)
 and :func:`block_pair_counts` for every pair of two frame blocks (kernel C's
 frame-pair entry point on the card). :func:`motion_support` (kernel E) is
-the support count behind :func:`prosac_quality`.
+the support count behind :func:`prosac_quality`. :func:`ratio_matches_hamming`
+keeps a query's nearest target when ``d1 < ratio * d2`` (the top-2 kernel F
+on the card, over a list of frame pairs).
 
 Signed descriptors are ``[..., 256]`` int8 +-1 with invalid rows zero;
 packed ones ``[..., 8]`` int32 words (:mod:`.descriptors`). Validity masks
@@ -30,12 +33,14 @@ from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
 from slam_loop_closing_tpu_torch.ops.descriptors import BITS
 
 BIG = 2 ** 30   # distance of a masked (query, target) pair
+BIG_F = 1e30    # float distance bound of the ratio test
 
 
 def hamming_matrix(signed_q: torch.Tensor, signed_t: torch.Tensor) -> torch.Tensor:
-    """[M, 256] x [N, 256] int8 +-1 -> [M, N] int32 Hamming distances,
-    ``(BITS - q @ t^T) / 2``."""
-    dots = (signed_q.to(torch.float32) @ signed_t.to(torch.float32).T)
+    """[..., M, 256] x [..., N, 256] int8 +-1 -> [..., M, N] int32 Hamming
+    distances, ``(BITS - q @ t^T) / 2``."""
+    dots = signed_q.to(torch.float32) @ signed_t.to(torch.float32).transpose(
+        -1, -2)
     return (BITS - dots.to(torch.int32)) >> 1
 
 
@@ -157,20 +162,102 @@ def similarity(counts: torch.Tensor, nq: torch.Tensor,
 # --------------------------------------------------------------------------
 
 class Matches(NamedTuple):
-    """Fixed-shape match set: one (optional) target index per query row."""
+    """Fixed-shape match set: one (optional) target index per query row,
+    with any leading pair axes."""
 
-    idx: torch.Tensor    # [M] int32 target index (meaningful only where mask)
-    dist: torch.Tensor   # [M] int32 match distance
-    mask: torch.Tensor   # [M] bool
-    count: torch.Tensor  # int32 number of matches
+    idx: torch.Tensor    # [..., M] int32 target index (meaningful where mask)
+    dist: torch.Tensor   # [..., M] int32 match distance
+    mask: torch.Tensor   # [..., M] bool
+    count: torch.Tensor  # [...] int32 number of matches
 
 
 def _mask_dist(dist: torch.Tensor, valid_q: torch.Tensor,
                valid_t: torch.Tensor) -> torch.Tensor:
-    """``dist`` [M, N] with every pair of an invalid query or target row
-    set to :data:`BIG`."""
-    dist = torch.where(valid_t[None, :], dist, BIG)
-    return torch.where(valid_q[:, None], dist, BIG)
+    """``dist`` [..., M, N] with every pair of an invalid query or target
+    row set to :data:`BIG`."""
+    dist = torch.where(valid_t[..., None, :], dist, BIG)
+    return torch.where(valid_q[..., :, None], dist, BIG)
+
+
+class Knn2(NamedTuple):
+    idx1: torch.Tensor  # [..., M] int32 nearest-neighbour index
+    d1: torch.Tensor    # [..., M] nearest distance
+    d2: torch.Tensor    # [..., M] second-nearest distance
+
+
+def knn2(dist: torch.Tensor, valid_q: torch.Tensor,
+         valid_t: torch.Tensor) -> Knn2:
+    """Per-query top-2 nearest neighbours (the k=2 of cv::knnMatch) of a
+    [..., M, N] distance matrix, as two masked row-min reductions: idx1 the
+    first index of the minimum, d2 the minimum with idx1's column masked."""
+    d = _mask_dist(dist, valid_q, valid_t)
+    idx1 = torch.argmin(d, dim=-1)
+    d1 = torch.gather(d, -1, idx1[..., None])[..., 0]
+    cols = torch.arange(d.shape[-1], device=d.device)
+    d_wo = torch.where(cols == idx1[..., None], BIG, d)
+    return Knn2(idx1=idx1.to(torch.int32), d1=d1,
+                d2=torch.amin(d_wo, dim=-1))
+
+
+def _ratio_from_knn2(d1: torch.Tensor, idx1: torch.Tensor, d2: torch.Tensor,
+                     valid_q: torch.Tensor, ratio_eff: float) -> "Matches":
+    """Ratio-test :class:`Matches` from top-2 results: keep the nearest
+    neighbour when ``d1 < ratio_eff * d2`` (float32)."""
+    d1f = d1.to(torch.float32)
+    mask = valid_q & (d1f < ratio_eff * d2.to(torch.float32)) & (
+        d1f < BIG_F / 2)
+    return Matches(idx=idx1.to(torch.int32), dist=d1.to(torch.int32),
+                   mask=mask, count=torch.sum(mask, dim=-1, dtype=torch.int32))
+
+
+def ratio_matches(dist: torch.Tensor, valid_q: torch.Tensor,
+                  valid_t: torch.Tensor, ratio: float) -> "Matches":
+    """Lowe-ratio-test matching (reference main.cpp:509-534) of a [..., M,
+    N] distance matrix: :func:`knn2`, then ``d1 < ratio * d2``."""
+    k = knn2(dist, valid_q, valid_t)
+    return _ratio_from_knn2(k.d1, k.idx1, k.d2, valid_q, ratio)
+
+
+def ratio_matches_hamming_pairs(packed_q: torch.Tensor, valid_q: torch.Tensor,
+                                packed_t: torch.Tensor, valid_t: torch.Tensor,
+                                qidx: torch.Tensor, tidx: torch.Tensor,
+                                ratio: float) -> "Matches":
+    """ORB-path ratio matching of a list of frame pairs: the query frames
+    ``qidx`` [P] of the store ``packed_q`` [Fq, N, 8] against the target
+    frames ``tidx`` of ``packed_t`` [Ft, M, 8], by one call of the top-2
+    kernel (:func:`.cuda_kernels.hamming_knn2`, its plain version on the
+    CPU). :class:`Matches` with a leading [P] axis."""
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels
+
+    d1, idx1, d2 = cuda_kernels.hamming_knn2(packed_q, valid_q, packed_t,
+                                             valid_t, qidx, tidx)
+    vq = valid_q.index_select(0, qidx.long())
+    return _ratio_from_knn2(d1, idx1, d2, vq, ratio)
+
+
+def ratio_matches_hamming(packed_q: torch.Tensor, valid_q: torch.Tensor,
+                          packed_t: torch.Tensor, valid_t: torch.Tensor,
+                          ratio: float) -> "Matches":
+    """ORB-path ratio matching of one frame pair: packed ``[M, 8]`` /
+    ``[N, 8]`` int32 words (the JAX package takes the signed layout; the
+    distances are the same), through :func:`ratio_matches_hamming_pairs`."""
+    zero = torch.zeros(1, dtype=torch.int32, device=packed_q.device)
+    m = ratio_matches_hamming_pairs(packed_q[None], valid_q[None],
+                                    packed_t[None], valid_t[None], zero,
+                                    zero, ratio)
+    return Matches(*(a[0] for a in m))
+
+
+def pack_valid_first(desc: torch.Tensor, xy: torch.Tensor,
+                     valid: torch.Tensor):
+    """Permute each frame's keypoint rows so every valid row comes first,
+    stable within each group, for [B, N, D] / [B, N, 2] / [B, N] inputs
+    (the JAX package's stable argsort of ``~valid``, here on a uint8 key).
+    Invalid rows keep their contents (zero descriptors)."""
+    perm = torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)
+    return (torch.take_along_dim(desc, perm[..., None], dim=-2),
+            torch.take_along_dim(xy, perm[..., None], dim=-2),
+            torch.take_along_dim(valid, perm, dim=-1))
 
 
 def nn_matches_2xmin(packed_q: torch.Tensor, valid_q: torch.Tensor,
@@ -223,5 +310,6 @@ def prosac_quality(xy_q: torch.Tensor, xy_t_matched: torch.Tensor,
     outvote one unit of support (descriptor distance is anti-correlated
     with correctness on repetitive texture)."""
     support = motion_support(xy_q, xy_t_matched, m.mask, radius, tau)
-    dmax = torch.amax(torch.where(m.mask, m.dist, 0)).to(torch.float32)
+    dmax = torch.amax(torch.where(m.mask, m.dist, 0), dim=-1,
+                      keepdim=True).to(torch.float32)
     return support.to(torch.float32) - m.dist.to(torch.float32) / (1.0 + dmax)

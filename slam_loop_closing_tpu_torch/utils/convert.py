@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from slam_loop_closing_tpu_torch.models import sfm
 from slam_loop_closing_tpu_torch.models.loop_closing import FrameDatabase
 from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
 from slam_loop_closing_tpu_torch.ops import matching, orb
@@ -58,6 +59,16 @@ def database(system, device) -> FrameDatabase:
         xy=torch.tensor(np.asarray(system._db_xy, np.float32), device=device),
         nfeat=torch.tensor(np.asarray(system._db_nfeat, np.int32),
                            device=device))
+
+
+def map_state(state, device) -> sfm.MapState:
+    """The JAX package's SfM ``MapState`` (its arrays as numpy) as the
+    port's, the signed descriptors packed into words."""
+    fields = {k: torch.from_numpy(np.array(v)).to(device)
+              for k, v in state._asdict().items() if k != "signed"}
+    fields["packed"] = desc_ops.signed_to_packed(
+        torch.from_numpy(np.array(state.signed, np.int8)).to(device))
+    return sfm.MapState(**fields)
 
 
 def matches(m, device) -> matching.Matches:

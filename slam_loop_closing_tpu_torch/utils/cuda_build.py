@@ -113,8 +113,11 @@ def load() -> ctypes.CDLL:
         "slam_pair_counts": (p, p, p, p, p, i, i, f, p),
         # q, t, valid_q, valid_t, d1, idx, m, n, stream
         "slam_hamming_nn": (p, p, p, p, p, p, i, i, p),
-        # q [n, 4], mask, out, n, radius^2, tau^2, stream
-        "slam_motion_support": (p, p, p, i, f, f, p),
+        # q, t, valid_q, valid_t, qidx, tidx, d1, idx, d2, p_cnt, n_q, n_t,
+        # stream
+        "slam_hamming_knn2": (p, p, p, p, p, p, p, p, p, i, i, i, p),
+        # q [batch, n, 4], mask, out, batch, n, radius^2, tau^2, stream
+        "slam_motion_support": (p, p, p, i, i, f, f, p),
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -7,8 +7,8 @@ device (the CPU test run); on a machine with a card and nvcc:
 
 (``--noconftest``: the tests' conftest configures JAX, which this file does
 not use.) Integer outputs, the FAST score and the blur are bitwise equal;
-so are the nearest-neighbour (D), motion-support (E) and frame-pair count
-(K5) kernels.
+so are the nearest-neighbour (D), top-2 (F), motion-support (E) and
+frame-pair count (K5) kernels.
 """
 
 import dataclasses
@@ -17,8 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from slam_loop_closing_tpu_torch.config import (LoopConfig, OrbConfig,
-                                                PipelineConfig)
+from slam_loop_closing_tpu_torch.config import (CameraConfig, KeyframeConfig,
+                                                LoopConfig, LoopVerifyConfig,
+                                                OrbConfig, PipelineConfig,
+                                                RansacConfig)
+from slam_loop_closing_tpu_torch.models import sfm
 from slam_loop_closing_tpu_torch.models.loop_closing import LoopClosingSystem
 from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
 from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
@@ -131,6 +134,11 @@ def _signed(rng, rows):
     return (rng.integers(0, 2, (rows, 256)) * 2 - 1).astype(np.int8)
 
 
+def _strided(t: torch.Tensor) -> torch.Tensor:
+    """The values of ``t`` as a non-contiguous view."""
+    return torch.stack([t, t], -1)[..., 0]
+
+
 @pytest.mark.parametrize("m,n", [(70, 90), (2000, 2000), (5, 1100)])
 def test_hamming_nn_kernel_bitwise(dev, m, n):
     """Duplicated targets (ties to the lowest index), invalid rows on both
@@ -144,8 +152,11 @@ def test_hamming_nn_kernel_bitwise(dev, m, n):
     vt = torch.from_numpy(rng.random(n) > 0.1).to(dev)
     pq = desc_ops.signed_to_packed(torch.from_numpy(sq).to(dev))
     pt = desc_ops.signed_to_packed(torch.from_numpy(st).to(dev))
-    for valid_t in (vt, torch.zeros_like(vt)):
-        d1, idx = ck.hamming_nn(pq, vq, pt, valid_t)
+    # the last case passes strided validity: the wrapper's contiguous copies
+    # must outlive the launch (F4)
+    for valid_q, valid_t in ((vq, vt), (vq, torch.zeros_like(vt)),
+                             (_strided(vq), _strided(vt))):
+        d1, idx = ck.hamming_nn(pq, valid_q, pt, valid_t)
         ref_d1, ref_idx = ck.hamming_nn_plain(pq, vq, pt, valid_t)
         assert torch.equal(d1, ref_d1) and torch.equal(idx, ref_idx)
 
@@ -208,3 +219,114 @@ def test_process_frame_on_card_equals_cpu(dev):
               "motion_support", "pair_counts"):
         assert ck.LAUNCHES[k] > before[k]
     assert loops["cpu"] and loops["cpu"] == loops[str(dev)]
+
+
+@pytest.mark.parametrize("m,n,pairs", [(70, 90, 5), (1000, 1000, 300),
+                                       (5, 1100, 3)])
+def test_hamming_knn2_kernel_bitwise(dev, m, n, pairs):
+    """A query store and a target store indexed in place by a pair list:
+    duplicated targets (d2 = d1 ties), queries equal to targets, invalid
+    rows on both sides, an all-invalid target frame, targets crossing
+    512-row chunks."""
+    rng = np.random.default_rng(m + n + pairs)
+    sq = (rng.integers(0, 2, (6, m, 256)) * 2 - 1).astype(np.int8)
+    st = (rng.integers(0, 2, (7, n, 256)) * 2 - 1).astype(np.int8)
+    st[:, n // 2:n // 2 + 3] = st[:, :3]
+    sq[:, :3] = st[0, :3]
+    vq = torch.from_numpy(rng.random((6, m)) > 0.1).to(dev)
+    vt = torch.from_numpy(rng.random((7, n)) > 0.1).to(dev)
+    vt[:, :3] = True
+    vt[:, n // 2:n // 2 + 3] = True
+    vt[4] = False
+    pq = desc_ops.signed_to_packed(torch.from_numpy(sq).to(dev))
+    pt = desc_ops.signed_to_packed(torch.from_numpy(st).to(dev))
+    qidx = torch.from_numpy(rng.integers(0, 6, pairs).astype(np.int32)).to(dev)
+    tidx = torch.from_numpy(rng.integers(0, 7, pairs).astype(np.int32)).to(dev)
+    tidx[0] = 0
+    tidx[-1] = 4
+    ref = ck.hamming_knn2_plain(pq, vq, pt, vt, qidx, tidx)
+    # int64 pair lists as strided views of one [P, 2] tensor (as find_loop
+    # builds them) and strided validity: converted copies must outlive the
+    # launch (F4)
+    q64, t64 = torch.stack([qidx, tidx], 1).long().T
+    for args in ((vq, vt, qidx, tidx),
+                 (_strided(vq), _strided(vt), q64, t64)):
+        got = ck.hamming_knn2(pq, args[0], pt, args[1], args[2], args[3])
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    d1, idx, d2 = (t.cpu() for t in got)
+    ok0 = vq[int(qidx[0]), :3].cpu()
+    assert (d1[0, :3][ok0] == 0).all() and (d2[0, :3][ok0] == 0).all()
+    assert (idx[0, :3][ok0] == torch.arange(3)[ok0]).all()
+    assert (d1[-1] == 2 ** 30).all() and (d2[-1] == 2 ** 30).all()
+
+
+def test_motion_support_kernel_batched_bitwise(dev):
+    """A verification chunk: 32 match sets in one launch."""
+    rng = np.random.default_rng(32)
+    xy = torch.from_numpy(rng.normal(size=(32, 1000, 2)).astype(np.float32))
+    flow = torch.from_numpy(
+        (0.02 + 0.01 * rng.normal(size=(32, 1000, 2))).astype(np.float32))
+    mask = torch.from_numpy(rng.random((32, 1000)) > 0.2)
+    xy, flow, mask = xy.to(dev), flow.to(dev), mask.to(dev)
+    got = ck.motion_support(xy, xy - flow, mask, 0.208, 0.0256)
+    ref = ck.motion_support_plain(xy, xy - flow, mask, 0.208, 0.0256)
+    assert torch.equal(got, ref) and int(got.max()) > 0
+
+
+def test_sfm_on_card_equals_cpu(dev, monkeypatch):
+    """The 24-frame SfM fixture (512 hypotheses) through SfMPipeline.run on
+    the CPU and on the card, the CPU's minimal sets replayed on the card,
+    through kernels A, B, E and F: the same keyframes and loop pair; the
+    loop's inlier count within 3 and the map counts within 1% (a few points
+    flip at the float Sampson and parallax gates: cuSOLVER's SVDs differ
+    from LAPACK's in the last bits); reprojection errors before BA and
+    final within 10% (0.8% measured; the maps differ by a few points)."""
+    cfg = dataclasses.replace(
+        PipelineConfig(),
+        camera=CameraConfig(fx=153.6, fy=153.6, cx=96.0, cy=72.0, k1=0.0,
+                            k2=0.0, p1=0.0, p2=0.0, k3=0.0),
+        orb=OrbConfig(num_features=300, num_levels=2),
+        keyframe=KeyframeConfig(min_median_displacement=2.0,
+                                max_median_displacement=150.0,
+                                min_tracked_features=40, min_inlier_ratio=0.3,
+                                min_inliers=25),
+        loop_verify=LoopVerifyConfig(min_matches=40, min_inliers=30,
+                                     min_inlier_ratio=0.5,
+                                     min_pose_inliers=15),
+        ransac=RansacConfig(num_hypotheses=512))
+    frames = orbit_sequence(num_frames=24, h=144, w=192, num_points=250, seed=5)
+    drawn = []
+    draw = sfm._minimal_sets
+
+    def record(*args):
+        drawn.append(draw(*args))
+        return drawn[-1]
+
+    out = {}
+    for d in ("cpu", dev):
+        if d == dev:
+            replay = iter(drawn)
+            monkeypatch.setattr(sfm, "_minimal_sets",
+                                lambda g, mask, *a: next(replay).to(
+                                    mask.device))
+        else:
+            monkeypatch.setattr(sfm, "_minimal_sets", record)
+        before = dict(ck.LAUNCHES)
+        res = sfm.SfMPipeline(cfg, max_keyframes=32, max_points=8192,
+                              max_obs=32768, log=lambda *a: None,
+                              device=d).run(frames, write_obj=False)
+        k = int(res.state.kf_count)
+        out[str(d)] = (res.state.kf_frame[:k].cpu().tolist(),
+                       (res.loop.curr_kf, res.loop.past_kf),
+                       res.loop.num_inliers,
+                       np.array([int(res.state.point_count),
+                                 int(res.state.obs_count)]),
+                       np.array([res.reproj_before_ba, res.reproj_final]))
+    for name in ("fast_score_nms_blur", "extract_patches", "hamming_knn2",
+                 "motion_support"):
+        assert ck.LAUNCHES[name] > before[name]
+    cpu, card = out["cpu"], out[str(dev)]
+    assert cpu[1][0] >= 0 and cpu[:2] == card[:2]
+    assert abs(cpu[2] - card[2]) <= 3
+    np.testing.assert_allclose(card[3], cpu[3], rtol=0.01)
+    np.testing.assert_allclose(card[4], cpu[4], rtol=0.1)

@@ -164,7 +164,17 @@ def test_port_imports_no_jax():
             "slam_loop_closing_tpu_torch.ops.epipolar, "
             "slam_loop_closing_tpu_torch.ops.ransac, "
             "slam_loop_closing_tpu_torch.utils.convert, "
-            "slam_loop_closing_tpu_torch.utils.profiling; "
+            "slam_loop_closing_tpu_torch.utils.profiling, "
+            "slam_loop_closing_tpu_torch.models.sfm, "
+            "slam_loop_closing_tpu_torch.ops.ba, "
+            "slam_loop_closing_tpu_torch.ops.camera, "
+            "slam_loop_closing_tpu_torch.ops.lie, "
+            "slam_loop_closing_tpu_torch.ops.outliers, "
+            "slam_loop_closing_tpu_torch.ops.pgo, "
+            "slam_loop_closing_tpu_torch.ops.triangulation, "
+            "slam_loop_closing_tpu_torch.utils.checkpoint, "
+            "slam_loop_closing_tpu_torch.utils.io, "
+            "slam_loop_closing_tpu_torch.utils.logging; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('slam_loop_closing_tpu.')]; "
             "assert not bad, bad")

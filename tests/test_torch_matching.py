@@ -2,9 +2,11 @@
 descriptor layouts, Hamming distances, per-block counts and the banded
 counts (the plain version of the band-count kernel) against the XLA path
 and both TPU band kernels in interpret mode; the plain versions of the
-frame-pair count (K5), nearest-neighbour (D) and motion-support (E) kernels
-against their TPU kernels in interpret mode and the XLA path. Counts,
-indices and distances are integers: every such comparison is bitwise."""
+frame-pair count (K5), nearest-neighbour (D), top-2 (F) and
+motion-support (E) kernels against their TPU kernels in interpret mode and
+the XLA path; the Version-B ratio matching and the valid-first packing.
+Counts, indices and distances are integers: every such comparison is
+bitwise."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -236,6 +238,95 @@ def test_hamming_nn_plain_equals_tpu_kernel(nn_inputs, all_invalid):
         assert not idx.numpy()[~vq].any()
 
 
+@pytest.mark.parametrize("all_invalid", [False, True])
+def test_knn2_and_hamming_knn2_plain_equal_jax(nn_inputs, all_invalid):
+    """knn2 of the Hamming matrix, and kernel F's plain version over a pair
+    list of frame stores: (d1, idx1, d2) bitwise the JAX reference path's
+    knn2(hamming_matrix(...)) on every row (an invalid query row, or one
+    with no valid target, is (2^30, 0, 2^30)); equal distances tie to the
+    lowest index with d2 = d1; the TPU kernel's (interpret mode) on valid
+    query rows."""
+    sq, vq, st, vt = nn_inputs
+    if all_invalid:
+        vt = np.zeros_like(vt)
+    ref = jmatch.knn2(jmatch.hamming_matrix(jnp.asarray(sq), jnp.asarray(st)),
+                      jnp.asarray(vq), jnp.asarray(vt))
+    k = tmatch.knn2(tmatch.hamming_matrix(torch.from_numpy(sq),
+                                          torch.from_numpy(st)),
+                    torch.from_numpy(vq), torch.from_numpy(vt))
+    for name in ("idx1", "d1", "d2"):
+        np.testing.assert_array_equal(getattr(k, name).numpy(),
+                                      np.asarray(getattr(ref, name)))
+    # the pairs (1, 1) and (0, 0) of a 2-frame query store and a 3-frame
+    # target store, indexed in place
+    rng = np.random.default_rng(12)
+    other_q = (rng.integers(0, 2, sq.shape) * 2 - 1).astype(np.int8)
+    other_t = (rng.integers(0, 2, (2, *st.shape)) * 2 - 1).astype(np.int8)
+    pq, pt = packed(np.stack([other_q, sq])), packed(
+        np.stack([other_t[0], st, other_t[1]]))
+    vqs = torch.from_numpy(np.stack([vq, vq]))
+    vts = torch.from_numpy(np.stack([vt, vt, vt]))
+    d1, idx, d2 = cuda_kernels.hamming_knn2(
+        pq, vqs, pt, vts, torch.tensor([1, 0], dtype=torch.int32),
+        torch.tensor([1, 0], dtype=torch.int32))
+    assert d1.dtype == idx.dtype == d2.dtype == torch.int32
+    np.testing.assert_array_equal(d1[0].numpy(), np.asarray(ref.d1))
+    np.testing.assert_array_equal(idx[0].numpy(), np.asarray(ref.idx1))
+    np.testing.assert_array_equal(d2[0].numpy(), np.asarray(ref.d2))
+    if all_invalid:
+        assert (d1.numpy() == 2 ** 30).all() and not idx.numpy().any()
+        return
+    assert (d1[0, :10][vq[:10]] == 0).all() and (d2[0, :10][vq[:10]] == 0).all()
+    np.testing.assert_array_equal(idx[0, :10].numpy()[vq[:10]],
+                                  np.arange(10, 20)[vq[:10]])
+    tpu = pallas_kernels.hamming_knn2(jnp.asarray(sq), jnp.asarray(st),
+                                      jnp.asarray(vt), tile_m=64,
+                                      interpret=True)
+    for got, want in zip((d1[0], idx[0], d2[0]), tpu):
+        np.testing.assert_array_equal(got.numpy()[vq], np.asarray(want)[vq])
+
+
+def test_ratio_matches_hamming_equal_jax(nn_inputs):
+    """The ORB ratio test on the XLA path: idx, dist, mask and count, for
+    a single pair and through ratio_matches of the distance matrix."""
+    sq, vq, st, vt = (a.copy() for a in nn_inputs)
+    rng = np.random.default_rng(13)
+    sq[20:40] = st[60:80]                       # near copies: ratio matches
+    flip = rng.random((20, 256)) < 0.05
+    sq[20:40] = np.where(flip, -sq[20:40], sq[20:40])
+    vq[20:40] = vt[60:80] = True
+    sq = np.where(vq[:, None], sq, 0).astype(np.int8)
+    st = np.where(vt[:, None], st, 0).astype(np.int8)
+    ref = jmatch.ratio_matches_hamming(jnp.asarray(sq), jnp.asarray(vq),
+                                       jnp.asarray(st), jnp.asarray(vt), 0.75)
+    got = tmatch.ratio_matches_hamming(packed(sq), torch.from_numpy(vq),
+                                       packed(st), torch.from_numpy(vt), 0.75)
+    alt = tmatch.ratio_matches(
+        tmatch.hamming_matrix(torch.from_numpy(sq), torch.from_numpy(st)),
+        torch.from_numpy(vq), torch.from_numpy(vt), 0.75)
+    for m in (got, alt):
+        for name in ("idx", "dist", "mask", "count"):
+            np.testing.assert_array_equal(getattr(m, name).numpy(),
+                                          np.asarray(getattr(ref, name)))
+    assert int(got.count) >= 20
+
+
+def test_pack_valid_first_equal_jax():
+    """Valid rows first, stable, per frame (a stable sort of a uint8 key)."""
+    rng = np.random.default_rng(14)
+    desc = rng.integers(-2 ** 31, 2 ** 31, (3, 50, 8)).astype(np.int32)
+    xy = rng.random((3, 50, 2)).astype(np.float32)
+    valid = rng.random((3, 50)) > 0.4
+    valid[1] = False
+    ref = jmatch.pack_valid_first(jnp.asarray(desc), jnp.asarray(xy),
+                                  jnp.asarray(valid))
+    got = tmatch.pack_valid_first(torch.from_numpy(desc), torch.from_numpy(xy),
+                                  torch.from_numpy(valid))
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert got[2][0, :int(valid[0].sum())].all()
+
+
 def test_nn_matches_2xmin_equal_jax_xla(nn_inputs):
     """The 2 x min rule on the XLA path: idx and dist on valid query rows,
     mask and count everywhere; also through convert.matches."""
@@ -321,6 +412,14 @@ def test_new_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         cuda_kernels.motion_support(torch.zeros((4, 2)), torch.zeros((4, 2)),
                                     vmeta, 1.0, 1.0)
+    with pytest.raises(ValueError):
+        cuda_kernels.hamming_knn2(
+            torch.empty((2, 4, 8), dtype=torch.int32, device="meta"),
+            torch.empty((2, 4), dtype=torch.bool, device="meta"),
+            torch.empty((2, 4, 8), dtype=torch.int32, device="meta"),
+            torch.empty((2, 4), dtype=torch.bool, device="meta"),
+            torch.zeros(1, dtype=torch.int32, device="meta"),
+            torch.zeros(1, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError):
         cuda_kernels.pair_counts(
             torch.empty((2, 4, 8), dtype=torch.int32, device="meta"),
