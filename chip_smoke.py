@@ -54,12 +54,47 @@ each printed with its result and seconds on its own line:
    fixture runs at 512 hypotheses, not the tests' 128: at 128 the
    generator's own draws meet a RANSAC collapse at frame 19 (the JAX
    package collapses the same way on the same draws), no loop is found,
-   and the phase would not reach the loop search.
+   and the phase would not reach the loop search;
+10. kernels H, B and G at the SIFT path's shapes: the octave kernel H
+    against its plain version in both modes (Gaussian stack and gated
+    response; gauss only) on octave 0 of 8 1080p frames and on a small
+    octave (1080p's octave 3), bitwise; kernel B on that octave 0's
+    gradient maps at its keypoint slots (40x40 windows, center 19),
+    bitwise; the squared-L2 top-2 kernel G on the keyframe store that
+    ``SfMPipeline._frontend`` builds from the 96 frames (valid rows first,
+    cut to the count bucket) at the keyframe step's pair and the loop
+    search's 1,176 pairs at gap 48, d1 and d2 within 1e-5 with idx equal
+    away from near-ties; as extra checks, G on 4,000-row stores of 48
+    frames (300 pairs at gap 24): bitwise on integer-valued descriptors
+    with invalid rows, an all-invalid keyframe and forced ties, and within
+    1e-5 on the unpacked SIFT descriptors; CUDA-event times of all;
+11. slice SfMPipeline.run SIFT: the Version-B pipeline at
+    bench_reconstruct.py's SIFT configuration (96 x 1080x1920 uint8 orbit
+    frames, SIFT-4000, flat selection, 4 octaves, chunks of 8, f = 0.8 w,
+    the same gates and 1,024 hypotheses, ``use_scan=True``), measured as
+    phase 8 — kernels B, E, G and H must launch, the loop must be found,
+    the final reprojection error must be below the error before BA;
+12. agreement SIFT: the 24-frame SIFT fixture of tests/test_torch_sfm.py
+    (test_sfm_sift.py's configuration, at 256 hypotheses and 32 keyframe
+    slots: at the tests' 128 the port's own draws break the keyframe chain
+    early) on the CPU and on the card with the CPU's minimal
+    sets replayed: at least 99% of the CPU's keypoints on the card, equal
+    keyframes and loop pair, map counts within 1%, reprojection errors
+    within 10% (R11's terms; the front-end is not bitwise across devices:
+    cuBLAS and MKL sum the float32 octave resize in other orders, and
+    CUDA's atan2 and exp differ from the CPU's in the last bit).
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after. Any failure raises (exit code 1). The line before the last is
-the kernels' JSON record; the last line is ``{"ok": true, "device":
-{...}}``. The script imports nothing of JAX.
+the kernels' JSON record: each kernel's launches on the main paths, its
+error against the plain version, its CUDA-event time and the plain
+version's, and its bound (the larger of the bytes it must move over 3.35
+TB/s and the operations it does over the H100's peak for their type: int8
+tensor-core for the Hamming kernels, whose +-1 form is an int8 product, and
+float32 SIMT otherwise), all from this run's inputs; ``library_ms`` is null
+(no single PyTorch call computes any kernel's function). The last line is
+``{"ok": true, "device": {...}}``. The script imports nothing of JAX; run
+without the package beside it, it fails at the package's import.
 """
 
 from __future__ import annotations
@@ -80,6 +115,9 @@ NUM_FEATURES = 2000
 MAX_FRAMES = 512          # the live database (bench_incremental.py's size)
 PKG = "slam_loop_closing_tpu/ops/pallas_kernels.py"
 REPLACES = {"fast_score_nms_blur": f"{PKG}:736",     # _fast_kernel
+            "l2_knn2": f"{PKG}:256",                  # _l2_knn2_kernel
+            "gauss_stack_resp": f"{PKG}:1421",        # _gauss_stack_resp_kernel
+                                                      # (+ :1284)
             "extract_patches": f"{PKG}:1062",         # _patch_kernel
             "band_count_tiles": f"{PKG}:356",         # _band_d1_kernel (+ :538)
             "pair_counts": f"{PKG}:378",              # _pair_d1_kernel
@@ -92,7 +130,9 @@ SOURCES = {"fast_score_nms_blur": "fast_score_nms_blur.cu",
            "pair_counts": "band_counts.cu",
            "hamming_nn": "hamming_nn.cu",
            "hamming_knn2": "hamming_nn.cu",
-           "motion_support": "motion_support.cu"}
+           "motion_support": "motion_support.cu",
+           "l2_knn2": "l2_knn2.cu",
+           "gauss_stack_resp": "gauss_stack_resp.cu"}
 VIDEO_KERNELS = ("fast_score_nms_blur", "extract_patches", "band_count_tiles")
 STREAM_KERNELS = ("fast_score_nms_blur", "extract_patches", "pair_counts",
                   "hamming_nn", "motion_support")
@@ -108,6 +148,38 @@ SFM_INLIERS_ATOL = 3            # loop inlier / pose-inlier counts
 SFM_COUNT_RTOL = 0.01           # map point and observation counts
 SFM_RTOL = 0.1                  # reprojection errors (a map a few points
                                 # and a pose chain apart: 4.7% after BA)
+SIFT_FRAMES, SIFT_H, SIFT_W = 96, 1080, 1920   # bench_reconstruct.py's SIFT
+SIFT_FEATURES = 4000                           # configuration
+SIFT_KERNELS = ("extract_patches", "motion_support", "l2_knn2",
+                "gauss_stack_resp")
+SIFT_G_ATOL = 1e-5          # kernel G on real descriptors: dots summed in
+                            # another order than cuBLAS's
+SIFT_KEYPOINTS_AGREE = 0.99  # CPU keypoints found on the card (phase 12)
+SIFT_FIXTURE_HYPOTHESES = 256
+# bounds: the H100 SXM's published peaks
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12}
+FAST_OPS_PER_PX = 325   # kernel A: 16 arcs x 16 min/max, NMS, 2 x 13 blur
+GATE_OPS_PER_PX = 110   # kernel H's gates per response pixel: 27 DoG
+                        # differences, 52 min/max, the edge test
+
+
+def bound(nbytes: float, ops: float, kind: str) -> dict:
+    """The least time of work that moves ``nbytes`` (each input read once,
+    each output written once) and does ``ops`` operations of ``kind``:
+    ``bound_ms``, ``bound_by`` and a null ``library_ms``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
+def pair_work(nv_q: np.ndarray, nv_t: np.ndarray, qidx, tidx) -> float:
+    """Valid (query row, target row) combinations of a frame-pair list,
+    from the valid row counts of each store's frames."""
+    return float(np.sum(nv_q[np.asarray(qidx)].astype(np.float64)
+                        * nv_t[np.asarray(tidx)]))
 
 
 def phase(name: str, t0: float, result: str) -> None:
@@ -179,9 +251,10 @@ def check_kernels(frames_dev, dev) -> dict:
     t0 = time.perf_counter()
     levels = image_ops.pyramid(image_ops.ship_frames(frames_dev[:8], dev),
                                4, 1.2)
-    err, ulp, ms, plain_ms = 0.0, 0, 0.0, 0.0
+    err, ulp, ms, plain_ms, px = 0.0, 0, 0.0, 0.0, 0
     for lv in levels:
         lv = lv.contiguous()
+        px += lv.numel()
         score, blur = ck.fast_score_nms_blur(lv, thr)
         ref_s, ref_b = ck.fast_score_nms_blur_plain(lv, thr)
         if not torch.equal(score, ref_s):
@@ -192,8 +265,10 @@ def check_kernels(frames_dev, dev) -> dict:
         plain_ms += cuda_ms(lambda: ck.fast_score_nms_blur_plain(lv, thr), 3)
     if ulp > 0:
         raise AssertionError(f"blur differs from the plain version by {ulp} ulp")
-    records["fast_score_nms_blur"] = dict(max_abs_err=err, ms=ms,
-                                          plain_ms=plain_ms)
+    # one frame read, the score and the blur written
+    records["fast_score_nms_blur"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        **bound(12 * px, FAST_OPS_PER_PX * px, "f32"))
     phase("kernel A fast_score_nms_blur", t0,
           f"4 levels x 8 frames {[tuple(lv.shape[1:]) for lv in levels]}: "
           f"score bitwise, blur {ulp} ulp; kernel {ms:.3f} ms, plain "
@@ -214,8 +289,11 @@ def check_kernels(frames_dev, dev) -> dict:
         raise AssertionError("patch gather differs")
     ms = cuda_ms(lambda: ck.extract_patches(imgs, xy), 10)
     plain_ms = cuda_ms(lambda: ck.extract_patches_plain(imgs, xy), 3)
-    records["extract_patches"] = dict(max_abs_err=float((got - ref).abs().max()),
-                                      ms=ms, plain_ms=plain_ms)
+    out_bytes = got.numel() * 4
+    records["extract_patches"] = dict(
+        max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
+        **bound(min(out_bytes, imgs.numel() * 4) + out_bytes
+                + xy.numel() * 4, 0, "f32"))
     phase("kernel B extract_patches", t0,
           f"{b} frames x {NUM_FEATURES} keypoints: bitwise; kernel {ms:.3f} ms,"
           f" plain {plain_ms:.3f} ms")
@@ -242,8 +320,12 @@ def check_kernels(frames_dev, dev) -> dict:
     ms = cuda_ms(lambda: ck.band_count_tiles(packed, vt, qidx, tidx, block), 5)
     plain_ms = cuda_ms(
         lambda: ck.band_count_tiles_plain(packed, vt, qidx, tidx, block), 2)
+    # as the +-1 int8 product: 2 x 256 operations per valid row pair
+    nv = valid.sum(1).reshape(-1, block).sum(1)
     records["band_count_tiles"] = dict(
-        max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms)
+        max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
+        **bound(packed.numel() * 4 + vt.numel() + got.numel() * 4,
+                512 * pair_work(nv, nv, qidx.cpu(), tidx.cpu()), "int8"))
     phase("kernel C band_count_tiles", t0,
           f"{len(pairs)} tiles of {block}x{block} frames x {NUM_FEATURES} "
           f"descriptors: bitwise (max count {int(got.max())}); kernel "
@@ -285,8 +367,11 @@ def check_live_kernels(dev) -> dict:
                              "frame")
     ms = cuda_ms(lambda: ck.pair_counts(packed, vt, qidx, tidx), 10)
     plain_ms = cuda_ms(lambda: ck.pair_counts_plain(packed, vt, qidx, tidx), 2)
+    nv = valid.sum(1)
     records["pair_counts"] = dict(
-        max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms)
+        max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
+        **bound(packed.numel() * 4 + vt.numel() + got.numel() * 4,
+                512 * pair_work(nv, nv, qidx.cpu(), tidx.cpu()), "int8"))
     phase("kernel K5 pair_counts", t0,
           f"1 x {MAX_FRAMES} frames x {n} descriptors: bitwise (revisit "
           f"count {int(got[3])}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
@@ -313,8 +398,10 @@ def check_live_kernels(dev) -> dict:
         err = max(err, int((got[0] - ref[0]).abs().max()))
     ms = cuda_ms(lambda: ck.hamming_nn(pq, vq, pt, vt), 20)
     plain_ms = cuda_ms(lambda: ck.hamming_nn_plain(pq, vq, pt, vt), 5)
-    records["hamming_nn"] = dict(max_abs_err=float(err), ms=ms,
-                                 plain_ms=plain_ms)
+    records["hamming_nn"] = dict(
+        max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+        **bound(2 * n * 33 + 8 * n,
+                512.0 * int(vq.sum()) * int(vt.sum()), "int8"))
     phase("kernel D hamming_nn", t0,
           f"{n} x {n} descriptors (+ all-invalid targets): bitwise; kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
@@ -338,8 +425,11 @@ def check_live_kernels(dev) -> dict:
     check_bitwise("motion_support", [got], [ref])
     ms = cuda_ms(lambda: ck.motion_support(*args), 20)
     plain_ms = cuda_ms(lambda: ck.motion_support_plain(*args), 5)
+    # per match pair two squared distances (2 sub, 2 mul, 1 add each) and
+    # two compares
     records["motion_support"] = dict(
-        max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms)
+        max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
+        **bound(n * (16 + 1 + 4), 12.0 * n * n, "f32"))
     phase("kernel E motion_support", t0,
           f"{n} matches, radius {system._radius:.4f} tau {system._tau:.4f} "
           f"(normalized): bitwise (max support {int(got.max())}); kernel "
@@ -600,21 +690,24 @@ def check_cpu_agreement(dev) -> None:
               f"difference {diff}")
 
 
-def sfm_config():
-    """bench_reconstruct.py's configuration: ORB-1000 with one keypoint per
-    8-px cell at 540x960, its camera (f = 0.8 w, no distortion), keyframe
-    and loop-verify gates, and 1,024 RANSAC hypotheses."""
+def sfm_config(detector: str = "orb"):
+    """bench_reconstruct.py's configurations: ORB-1000 with one keypoint
+    per 8-px cell at 540x960, or SIFT-4000 (flat selection, 4 octaves) at
+    1080x1920; its camera (f = 0.8 w, no distortion), keyframe and
+    loop-verify gates, and 1,024 RANSAC hypotheses."""
     from slam_loop_closing_tpu_torch.config import (CameraConfig,
                                                     KeyframeConfig,
                                                     LoopVerifyConfig,
                                                     OrbConfig, PipelineConfig,
-                                                    RansacConfig)
+                                                    RansacConfig, SiftConfig)
 
-    cam = CameraConfig(fx=0.8 * SFM_W, fy=0.8 * SFM_W, cx=SFM_W / 2,
-                       cy=SFM_H / 2, k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0)
+    h, w = (SIFT_H, SIFT_W) if detector == "sift" else (SFM_H, SFM_W)
+    cam = CameraConfig(fx=0.8 * w, fy=0.8 * w, cx=w / 2, cy=h / 2, k1=0.0,
+                       k2=0.0, p1=0.0, p2=0.0, k3=0.0)
     return dataclasses.replace(
-        PipelineConfig(), camera=cam, detector="orb",
+        PipelineConfig(), camera=cam, detector=detector,
         orb=OrbConfig(num_features=SFM_FEATURES, grid_cell=8),
+        sift=SiftConfig(num_features=SIFT_FEATURES),
         keyframe=KeyframeConfig(min_median_displacement=2.0,
                                 max_median_displacement=300.0,
                                 min_tracked_features=60,
@@ -677,8 +770,11 @@ def check_sfm_kernels(dev) -> dict:
             & (idx[:20] == np.arange(400, 420))).all():
         raise AssertionError("forced ties: d2 must equal d1 at the lowest idx")
     ms, plain_ms = times["loop search"]
-    records = {"hamming_knn2": dict(max_abs_err=0.0, ms=ms,
-                                    plain_ms=plain_ms)}
+    nv = valid.sum(1)
+    records = {"hamming_knn2": dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        **bound(k * n * 33 + 12 * len(pairs) * n,
+                512 * pair_work(nv, nv, *zip(*pairs)), "int8"))}
     phase("kernel F hamming_knn2", t0,
           f"{n} x {n} rows; 1 pair (keyframe pass): bitwise, kernel "
           f"{times['keyframe pass'][0]:.3f} ms, plain "
@@ -732,9 +828,9 @@ def count_syncs_in(fn):
         f"{Path(w.filename).name}:{w.lineno}" for w in new)
 
 
-def run_sfm(dev) -> dict:
-    """The Version-B main path at full width; returns the launch counts of
-    the timed run from host memory."""
+def run_sfm(frames: np.ndarray, cfg, label: str, kernels, dev) -> dict:
+    """A Version-B main path at full width on host uint8 ``frames``;
+    returns the launch counts of the timed run from host memory."""
     import tempfile
 
     import torch
@@ -742,25 +838,23 @@ def run_sfm(dev) -> dict:
     from slam_loop_closing_tpu_torch.models import sfm
     from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
     from slam_loop_closing_tpu_torch.utils.profiling import StageTimer
-    from slam_loop_closing_tpu_torch.utils.synth_video import orbit_sequence
 
     t0 = time.perf_counter()
-    frames = to_u8(orbit_sequence(num_frames=SFM_FRAMES, h=SFM_H, w=SFM_W,
-                                  num_points=400))
-    cfg = sfm_config()
+    n, h, w = frames.shape
 
     def build():
-        return sfm.SfMPipeline(cfg, max_keyframes=SFM_FRAMES,
-                               max_points=65536, max_obs=262144,
-                               log=lambda *a: None, use_scan=True, device=dev)
+        return sfm.SfMPipeline(cfg, max_keyframes=n, max_points=65536,
+                               max_obs=262144, log=lambda *a: None,
+                               use_scan=True, device=dev)
 
     # warm-up, stage by stage; the keyframe pass counts its host syncs
     pipe = build()
     (state, _), syncs, sources = count_syncs_in(
         lambda: pipe.run_frontend_and_keyframes_scan(frames))
     pipe.run_backend(state, pipe.find_loop(state))
-    phase("slice SfM warm-up", t0, f"{SFM_FRAMES} x {SFM_H}x{SFM_W}; "
-          f"keyframe pass host syncs {syncs} in {SFM_FRAMES - 1} steps")
+    phase(f"slice SfM {label} warm-up", t0, f"{n} x {h}x{w}; keyframe pass "
+          f"host syncs {syncs} in {n - 1} steps ({syncs / (n - 1):.1f} a "
+          "step, front-end included)")
     for src, cnt in sources.most_common():
         print(f"  keyframe-pass sync source {src}: {cnt}")
 
@@ -779,21 +873,20 @@ def run_sfm(dev) -> dict:
         if not (obj.is_file() and Path(tmp).resolve() in obj.resolve().parents):
             raise AssertionError(f"no OBJ under the temporary directory: {obj}")
         obj_vertices = obj.read_text().count("\nv ")
-    if not all(launches[k] for k in SFM_KERNELS):
+    if not all(launches[k] for k in kernels):
         raise AssertionError(f"a kernel of the path did not run: {launches}")
     if not res.loop.found:
         raise AssertionError("no loop closure on a closed-loop orbit")
     if not res.reproj_final < res.reproj_before_ba:
         raise AssertionError(f"BA did not lower the reprojection error: "
                              f"{res.reproj_before_ba} -> {res.reproj_final}")
-    h = {k: int(getattr(res.state, k)) for k in
+    c = {k: int(getattr(res.state, k)) for k in
          ("kf_count", "point_count", "obs_count")}
-    phase("slice SfMPipeline.run", t0,
-          f"{SFM_FRAMES} x {SFM_H}x{SFM_W} uint8 from host, "
-          f"ORB-{SFM_FEATURES} grid 8, 1024 hypotheses, use_scan: "
-          f"{wall:.3f} s = {SFM_FRAMES / wall:.2f} frames/s (OBJ included); "
-          f"keyframes {h['kf_count']}, points {h['point_count']}, "
-          f"observations {h['obs_count']}; loop {res.loop.curr_kf} <-> "
+    phase(f"slice SfMPipeline.run {label}", t0,
+          f"{n} x {h}x{w} uint8 from host, {label}, 1024 hypotheses, "
+          f"use_scan: {wall:.3f} s = {n / wall:.2f} frames/s (OBJ included);"
+          f" keyframes {c['kf_count']}, points {c['point_count']}, "
+          f"observations {c['obs_count']}; loop {res.loop.curr_kf} <-> "
           f"{res.loop.past_kf} ({res.loop.num_matches} matches, "
           f"{res.loop.num_inliers} inliers, {res.loop.num_pose_inliers} pose "
           f"inliers); reprojection {res.reproj_before_ba:.4f} -> "
@@ -814,16 +907,16 @@ def run_sfm(dev) -> dict:
     if (res_dev.loop.curr_kf, res_dev.loop.past_kf) != (res.loop.curr_kf,
                                                         res.loop.past_kf):
         raise AssertionError("resident frames found another loop")
-    phase("slice SfMPipeline.run, frames resident", t0,
-          f"runs {', '.join(f'{w:.3f}' for w in walls)} s = "
-          f"{', '.join(f'{SFM_FRAMES / w:.2f}' for w in walls)} frames/s")
+    phase(f"slice SfMPipeline.run {label}, frames resident", t0,
+          f"runs {', '.join(f'{t:.3f}' for t in walls)} s = "
+          f"{', '.join(f'{n / t:.2f}' for t in walls)} frames/s")
 
     # stage split, each stage synchronized; the loop search's two device
     # calls timed through the module's names
     t0 = time.perf_counter()
     timer = StageTimer(dev)
-    originals = {n: getattr(sfm, n) for n in ("_pair_ratio_counts",
-                                              "_verify_loop_scores")}
+    originals = {name: getattr(sfm, name) for name in ("_pair_ratio_counts",
+                                                       "_verify_loop_scores")}
 
     def timed(name, fn):
         def wrapper(*args, **kwargs):
@@ -833,7 +926,7 @@ def run_sfm(dev) -> dict:
 
     pipe = build()
     try:
-        sfm._pair_ratio_counts = timed("  loop pair counts (F)",
+        sfm._pair_ratio_counts = timed("  loop pair counts",
                                        originals["_pair_ratio_counts"])
         sfm._verify_loop_scores = timed("  loop verification",
                                         originals["_verify_loop_scores"])
@@ -851,7 +944,8 @@ def run_sfm(dev) -> dict:
     split = {k: v * 1e3 for k, v in timer.stages.items()}
     split["keyframe pass"] = (split["front-end + keyframe pass"]
                               - split["front-end"])
-    phase("slice SfM stage split", t0, "ms, each stage synchronized: "
+    phase(f"slice SfM {label} stage split", t0,
+          "ms, each stage synchronized: "
           + ", ".join(f"{k.strip()} {v:.1f}" for k, v in split.items()))
 
     # device idle share of one resident run; device activity only (see
@@ -867,9 +961,9 @@ def run_sfm(dev) -> dict:
         wall = time.perf_counter() - t_w
     busy = sum(getattr(e, "self_device_time_total", 0.0)
                for e in prof.key_averages()) / 1e6
-    phase("slice SfM idle share", t0, f"one resident run {wall:.3f} s under "
-          f"the profiler, device busy {busy:.3f} s (kernel time): idle "
-          f"share {max(0.0, 1.0 - busy / wall):.0%}")
+    phase(f"slice SfM {label} idle share", t0, f"one resident run "
+          f"{wall:.3f} s under the profiler, device busy {busy:.3f} s "
+          f"(kernel time): idle share {max(0.0, 1.0 - busy / wall):.0%}")
     return launches
 
 
@@ -977,13 +1071,355 @@ def check_sfm_agreement(dev) -> None:
           f"{card['errs'].tolist()}, max relative difference {rel.max():.2e}")
 
 
+def check_l2_store(label: str, desc, vd, shapes) -> tuple[float, dict]:
+    """Kernel G against its plain version on one store at each
+    ``(name, (qidx, tidx))`` of ``shapes``: d1 and d2 within SIFT_G_ATOL,
+    idx equal away from near-ties, the same rows matched. Returns (the
+    largest |d1, d2| difference, {name: (kernel ms, plain ms)})."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+
+    err, times = 0.0, {}
+    for name, (qi, ti) in shapes:
+        got = ck.l2_knn2(desc, vd, desc, vd, qi, ti)
+        ref = ck.l2_knn2_plain(desc, vd, desc, vd, qi, ti)
+        rows = ref[0] < 1e29          # a valid query with a valid target
+        e = max(float((got[0] - ref[0])[rows].abs().max()),
+                float((got[2] - ref[2])[rows].abs().max()))
+        far = rows & ((ref[2] - ref[0]).abs() >= SIFT_G_ATOL)
+        if (e > SIFT_G_ATOL or not torch.equal(got[1][far], ref[1][far])
+                or not torch.equal(rows, got[0] < 1e29)):
+            raise AssertionError(f"l2_knn2 on {label} ({name}): max |d| "
+                                 f"difference {e:.2e}, idx equal away from "
+                                 f"ties: {torch.equal(got[1][far], ref[1][far])}")
+        err = max(err, e)
+        del got, ref
+        times[name] = (
+            cuda_ms(lambda: ck.l2_knn2(desc, vd, desc, vd, qi, ti), 5),
+            cuda_ms(lambda: ck.l2_knn2_plain(desc, vd, desc, vd, qi, ti), 2))
+    return err, times
+
+
+def check_sift_kernels(frames: np.ndarray, dev) -> dict:
+    """Kernel H on octave 0 of a chunk of 1080p frames and on a small
+    octave, both modes, bitwise; kernel B on that octave's gradient maps
+    at its keypoints (the descriptor's 40x40 windows), bitwise; kernel G on
+    the keyframe store the pipeline's own front-end builds from all the
+    frames (valid rows first, cut to the count bucket) at the keyframe
+    step's pair and the loop search's pair list, within SIFT_G_ATOL, and as
+    extra checks on 4,000-row stores: bitwise on integer-valued
+    descriptors, within SIFT_G_ATOL on the unpacked SIFT descriptors of 48
+    frames."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.models import sfm
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    from slam_loop_closing_tpu_torch.ops import sift
+    from slam_loop_closing_tpu_torch.ops.image import (resize_bilinear,
+                                                       ship_frames)
+
+    records = {}
+    t0 = time.perf_counter()
+    cfg = sfm_config("sift").sift
+    s = cfg.scales_per_octave
+    sig = sift._chain_sigmas(s, cfg.sigma0)
+    args = (s, sift._contrast_threshold(cfg), cfg.edge_threshold)
+    imgs = ship_frames(frames[:cfg.batch_chunk], dev)
+    small = imgs
+    for _ in range(3):
+        small = resize_bilinear(small, small.shape[-2] // 2,
+                                small.shape[-1] // 2)
+    small = small.contiguous()
+    extrema = []
+    for x in (imgs, small):
+        for emit in (True, False):
+            got = ck.gauss_stack_resp(x, sig, *args, emit_resp=emit)
+            ref = ck.gauss_stack_resp_plain(x, sig, *args, emit_resp=emit)
+            if not (torch.equal(got[0], ref[0])
+                    and (not emit or torch.equal(got[1], ref[1]))):
+                raise AssertionError(f"kernel H differs from its plain version"
+                                     f" at {tuple(x.shape)}, emit_resp={emit}")
+            if emit:
+                extrema.append(int((got[1] > 0).sum()))
+    del got, ref
+    ms = cuda_ms(lambda: ck.gauss_stack_resp(imgs, sig, *args), 10)
+    plain_ms = cuda_ms(lambda: ck.gauss_stack_resp_plain(imgs, sig, *args), 2)
+    gauss_ms = cuda_ms(lambda: ck.gauss_stack_resp(imgs, sig, s,
+                                                   emit_resp=False), 10)
+    gauss_plain_ms = cuda_ms(lambda: ck.gauss_stack_resp_plain(
+        imgs, sig, s, emit_resp=False), 2)
+    b, h, w = imgs.shape
+    taps = sum(len(t) for t in sift.chain_taps(sig))
+    # the frames read once, the levels and the response planes written once
+    records["gauss_stack_resp"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        **bound(4 * b * h * w * (1 + len(sig) + s),
+                b * h * w * (4 * taps + s * GATE_OPS_PER_PX), "f32"))
+    gauss_bound = bound(4 * b * h * w * (1 + len(sig)), 4 * b * h * w * taps,
+                        "f32")
+    phase("kernel H gauss_stack_resp", t0,
+          f"{b} x {h}x{w} (octave 0) and {tuple(small.shape)} (octave 3), "
+          f"both modes: bitwise ({extrema} extrema); octave 0, gauss + "
+          f"response: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; gauss "
+          f"only: kernel {gauss_ms:.3f} ms, plain {gauss_plain_ms:.3f} ms, "
+          f"bound {gauss_bound['bound_ms']:.4f} ms "
+          f"({gauss_bound['bound_by']})")
+    del small
+    torch.cuda.empty_cache()
+
+    # B at the SIFT path's shape: the 40x40 windows of octave 0's gradient
+    # maps at that octave's keypoint slots
+    t0 = time.perf_counter()
+    budget = sift._level_budgets(cfg.num_features, cfg.num_octaves)[0]
+    _, _, _, kp_valid, mag, ang, xy_oct = sift._detect_octave(imgs, 0, budget,
+                                                              cfg)
+    pargs = (xy_oct, sift.PATCH, sift.PATCH_CENTER)
+    for m in (mag, ang):
+        check_bitwise("extract_patches (SIFT 40x40 windows)",
+                      [ck.extract_patches(m, *pargs)],
+                      [ck.extract_patches_plain(m, *pargs)])
+    b_ms = cuda_ms(lambda: ck.extract_patches(mag, *pargs), 10)
+    b_plain_ms = cuda_ms(lambda: ck.extract_patches_plain(mag, *pargs), 3)
+    out_bytes = 4 * xy_oct.shape[0] * xy_oct.shape[1] * sift.PATCH ** 2
+    b_bound = bound(min(out_bytes, mag.numel() * 4) + out_bytes
+                    + xy_oct.numel() * 4, 0, "f32")
+    phase("kernel B extract_patches, SIFT", t0,
+          f"{b} x {h}x{w} gradient maps, {xy_oct.shape[1]} keypoint slots a "
+          f"frame ({int(kp_valid.sum()) // b} valid), {sift.PATCH}x"
+          f"{sift.PATCH} at center {sift.PATCH_CENTER}, magnitude and angle: "
+          f"bitwise; kernel {b_ms:.3f} ms, plain {b_plain_ms:.3f} ms, bound "
+          f"{b_bound['bound_ms']:.4f} ms ({b_bound['bound_by']}) a map")
+    del imgs, mag, ang, xy_oct, kp_valid
+    torch.cuda.empty_cache()
+
+    # G on the pipeline's own keyframe store: every frame is a keyframe of
+    # the SIFT run (phase 11), so the store is the front-end's output
+    t0 = time.perf_counter()
+    n_kf = len(frames)
+    pipe = sfm.SfMPipeline(sfm_config("sift"), max_keyframes=n_kf,
+                           log=lambda *a: None, device=dev)
+    desc, vd = (t.contiguous() for t in pipe._frontend(frames)[:2])
+    del pipe
+    nv = vd.sum(1).cpu().numpy()
+    gap = max(3, n_kf // 2)                 # SfMPipeline.find_loop's pairs
+    pairs = [(c, p) for c in range(gap, n_kf) for p in range(0, c - gap + 1)
+             if nv[c] >= 100 and nv[p] >= 100]
+    if not pairs:
+        raise AssertionError(f"no loop-search pair: {nv.tolist()} valid rows")
+    loop_q, loop_t = torch.tensor(pairs, dtype=torch.int32, device=dev).T
+    step = (torch.tensor([n_kf - 1], dtype=torch.int32, device=dev),
+            torch.tensor([n_kf - 2], dtype=torch.int32, device=dev))
+    err, times = check_l2_store("the packed SIFT store", desc, vd,
+                                (("keyframe step", step),
+                                 ("loop search", (loop_q, loop_t))))
+    ms, plain_ms = times["loop search"]
+    kf, nb = desc.shape[:2]
+    # 2 x 128 float32 operations per valid row pair; the store read once
+    records["l2_knn2"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        **bound(kf * nb * (128 * 4 + 1) + 12 * len(pairs) * nb,
+                256 * pair_work(nv, nv, *zip(*pairs)), "f32"))
+    phase("kernel G l2_knn2, pipeline store", t0,
+          f"{kf} x {nb} rows (the front-end's valid-first store at its count "
+          f"bucket; {int(nv.min())}-{int(nv.max())} valid a frame, mean "
+          f"{nv.mean():.0f}): max |d1, d2| difference {err:.2e}, idx equal "
+          f"away from ties; kernel {times['keyframe step'][0]:.3f} / "
+          f"{ms:.3f} ms, plain {times['keyframe step'][1]:.3f} / "
+          f"{plain_ms:.3f} ms (1 pair / {len(pairs)} pairs at gap {gap}), "
+          f"bound {records['l2_knn2']['bound_ms']:.3f} ms "
+          f"({records['l2_knn2']['bound_by']})")
+    del desc, vd
+    torch.cuda.empty_cache()
+
+    # extra checks on 4,000-row stores: integer-valued descriptors (bitwise,
+    # invalid rows, an all-invalid keyframe, forced ties) and the unpacked
+    # SIFT descriptors of 48 frames
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4)
+    k, n = SFM_STORE, SIFT_FEATURES
+    pairs = [(c, p) for c in range(SFM_GAP, k)
+             for p in range(0, c - SFM_GAP + 1)]
+    loop_q, loop_t = torch.tensor(pairs, dtype=torch.int32, device=dev).T
+    one_q = torch.tensor([k - 1], dtype=torch.int32, device=dev)
+    one_t = torch.tensor([k - 2], dtype=torch.int32, device=dev)
+    shapes = (("keyframe step", (one_q, one_t)), ("loop search",
+                                                  (loop_q, loop_t)))
+    ints = rng.integers(0, 16, (k, n, 128)).astype(np.float32)
+    valid = rng.random((k, n)) < 0.95
+    ints[:, 500:520] = ints[:, 400:420]       # duplicated targets
+    valid[:, 400:420] = valid[:, 500:520] = True
+    ints[k - 1, :100] = ints[k - 2, 400:500]  # queries equal to targets
+    valid[k - 1, :100] = True
+    valid[5] = False                          # an all-invalid keyframe
+    d_int = torch.from_numpy(ints).to(dev)
+    v_int = torch.from_numpy(valid).to(dev)
+    del ints
+    for name, (qi, ti) in shapes:
+        check_bitwise(f"l2_knn2 on integer descriptors ({name})",
+                      ck.l2_knn2(d_int, v_int, d_int, v_int, qi, ti),
+                      ck.l2_knn2_plain(d_int, v_int, d_int, v_int, qi, ti))
+    d1, idx, d2 = (t.cpu().numpy() for t in ck.l2_knn2(
+        d_int, v_int, d_int, v_int, loop_q, loop_t))
+    inv_q = ~valid[np.asarray(pairs)[:, 0]]
+    empty_t = np.asarray(pairs)[:, 1] == 5
+    big = np.float32(1e30)
+    if not ((d1[inv_q] == big) & (idx[inv_q] == 0) & (d2[inv_q] == big)).all():
+        raise AssertionError("invalid query rows are not (1e30, 0, 1e30)")
+    if not ((d1[empty_t] == big) & (d2[empty_t] == big)).all():
+        raise AssertionError("an all-invalid target frame gave a match")
+    d1, idx, d2 = (t.cpu().numpy()[0] for t in ck.l2_knn2(
+        d_int, v_int, d_int, v_int, one_q, one_t))
+    if not ((d1[:20] == 0) & (d2[:20] == 0)
+            & (idx[:20] == np.arange(400, 420))).all():
+        raise AssertionError("forced ties: d2 must equal d1 at the lowest idx")
+    del d_int, v_int
+
+    f = sift.detect_and_describe_batch(ship_frames(frames[:k], dev), cfg)
+    desc, vd = f.descriptors.contiguous(), f.valid.contiguous()
+    del f
+    raw_err, raw = check_l2_store("unpacked SIFT descriptors", desc, vd,
+                                  shapes)
+    phase("kernel G l2_knn2, 4,000-row stores", t0,
+          f"integer-valued: 1 pair and {len(pairs)} pairs of a {k}-keyframe "
+          f"store at gap {SFM_GAP}, bitwise (invalid rows, an all-invalid "
+          f"keyframe, forced ties); the unpacked SIFT descriptors of {k} "
+          f"1080p frames ({int(vd.sum()) // k} valid a frame): max |d1, d2| "
+          f"difference {raw_err:.2e}, idx equal away from ties; kernel "
+          f"{raw['keyframe step'][0]:.3f} / {raw['loop search'][0]:.3f} ms, "
+          f"plain {raw['keyframe step'][1]:.3f} / "
+          f"{raw['loop search'][1]:.3f} ms (1 pair / {len(pairs)} pairs)")
+    del desc, vd
+    torch.cuda.empty_cache()
+    return records
+
+
+def sift_fixture():
+    """(config, frames) of the 24-frame SIFT fixture of the tests
+    (test_sfm_sift.py's configuration) at SIFT_FIXTURE_HYPOTHESES."""
+    from slam_loop_closing_tpu_torch.config import (CameraConfig,
+                                                    KeyframeConfig,
+                                                    LoopVerifyConfig,
+                                                    MatchConfig,
+                                                    PipelineConfig,
+                                                    RansacConfig, SiftConfig)
+    from slam_loop_closing_tpu_torch.utils.synth_video import orbit_sequence
+
+    cfg = dataclasses.replace(
+        PipelineConfig(), detector="sift",
+        camera=CameraConfig(fx=0.8 * 192, fy=0.8 * 192, cx=96.0, cy=72.0,
+                            k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0),
+        sift=SiftConfig(num_features=400, num_octaves=2),
+        match=MatchConfig(ratio_threshold=0.85),
+        keyframe=KeyframeConfig(min_median_displacement=2.0,
+                                max_median_displacement=150.0,
+                                min_tracked_features=25, min_inlier_ratio=0.3,
+                                min_inliers=15),
+        loop_verify=LoopVerifyConfig(min_matches=25, min_inliers=15,
+                                     min_inlier_ratio=0.4,
+                                     min_pose_inliers=8),
+        ransac=RansacConfig(num_hypotheses=SIFT_FIXTURE_HYPOTHESES))
+    return cfg, orbit_sequence(num_frames=24, h=144, w=192, num_points=250,
+                               seed=11)
+
+
+def check_sift_agreement(dev) -> None:
+    """The SIFT fixture on the CPU and on the card: the front-end's
+    keypoints, then ``SfMPipeline.run`` with the CPU's minimal sets
+    replayed on the card (a draw for a match set of another shape, which a
+    keypoint near a gate can cause, is the card's own and counted)."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.models import sfm
+    from slam_loop_closing_tpu_torch.ops import sift
+    from slam_loop_closing_tpu_torch.ops.image import ship_frames
+
+    t0 = time.perf_counter()
+    cfg, frames = sift_fixture()
+    kps = {}
+    for d in ("cpu", dev):
+        f = sift.detect_and_describe_batch(ship_frames(frames, d), cfg.sift)
+        kps[d] = (f.xy.cpu().numpy(), f.valid.cpu().numpy())
+    (xy0, v0), (xy1, v1) = kps["cpu"], kps[dev]
+    found = 0
+    for i in range(len(frames)):
+        a, b = xy0[i][v0[i]], xy1[i][v1[i]]
+        if len(a) and len(b):
+            dist = np.abs(a[:, None] - b[None]).max(-1)
+            found += int((dist.min(1) <= 1e-3).sum())
+    share = found / max(int(v0.sum()), 1)
+    if share < SIFT_KEYPOINTS_AGREE:
+        raise AssertionError(f"{share:.1%} of the CPU's SIFT keypoints on the "
+                             "card")
+
+    drawn, stats = [], collections.Counter()
+    draw = sfm._minimal_sets
+
+    def record(generator, mask, quality, rcfg):
+        idx = draw(generator, mask, quality, rcfg)
+        drawn.append((idx, mask.shape))
+        return idx
+
+    def replay(generator, mask, quality, rcfg):
+        idx, shape = next(replayed, (None, None))
+        if shape != mask.shape:
+            stats["own"] += 1
+            return draw(generator, mask, quality, rcfg)
+        stats["replayed"] += 1
+        return idx.to(mask.device)
+
+    out = {}
+    try:
+        for d, seam in (("cpu", record), (dev, replay)):
+            replayed = iter(drawn)
+            sfm._minimal_sets = seam
+            res = sfm.SfMPipeline(cfg, max_keyframes=32, max_points=8192,
+                                  max_obs=32768, log=lambda *a: None,
+                                  device=d).run(frames, write_obj=False)
+            k = int(res.state.kf_count)
+            out[d] = dict(
+                keyframes=res.state.kf_frame[:k].cpu().tolist(),
+                loop=(res.loop.found, res.loop.curr_kf, res.loop.past_kf),
+                counts=np.array([int(res.state.point_count),
+                                 int(res.state.obs_count)]),
+                errs=np.array([res.reproj_before_ba, res.reproj_after_ba,
+                               res.reproj_final]))
+    finally:
+        sfm._minimal_sets = draw
+    cpu, card = out["cpu"], out[dev]
+    for key in ("keyframes", "loop"):
+        if cpu[key] != card[key]:
+            raise AssertionError(f"SIFT SfM {key} differ: cpu {cpu[key]} vs "
+                                 f"card {card[key]}")
+    rel_counts = np.abs(card["counts"] - cpu["counts"]) / cpu["counts"]
+    rel = np.abs(card["errs"] - cpu["errs"]) / cpu["errs"]
+    if (rel_counts > SFM_COUNT_RTOL).any() or (rel > SFM_RTOL).any():
+        raise AssertionError(
+            f"SIFT cpu vs card: points/observations {cpu['counts']} vs "
+            f"{card['counts']}, reprojection errors {cpu['errs']} vs "
+            f"{card['errs']}")
+    phase("agreement SIFT cpu vs card", t0,
+          f"24-frame SIFT fixture: {share:.2%} of {int(v0.sum())} CPU "
+          f"keypoints on the card ({int(v1.sum())} there); "
+          f"{stats['replayed']} draws replayed, {stats['own']} the card's "
+          f"own; {len(cpu['keyframes'])} keyframes and loop {cpu['loop']} "
+          f"equal; points/observations cpu {cpu['counts'].tolist()} card "
+          f"{card['counts'].tolist()}; reprojection errors cpu "
+          f"{cpu['errs'].tolist()} card {card['errs'].tolist()}")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    try:
+        from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here ({e}); run "
+              "from the repository's root", file=sys.stderr)
+        return 1
     from slam_loop_closing_tpu_torch.utils import cuda_build
     from slam_loop_closing_tpu_torch.utils.synth_video import orbit_sequence
 
@@ -1020,14 +1456,29 @@ def main() -> int:
     del frames, frames_dev
     torch.cuda.empty_cache()
     records.update(check_sfm_kernels(dev))
-    sfm_launches = run_sfm(dev)
+    sfm_launches = run_sfm(
+        to_u8(orbit_sequence(num_frames=SFM_FRAMES, h=SFM_H, w=SFM_W,
+                             num_points=400)),
+        sfm_config(), f"ORB-{SFM_FEATURES} grid 8", SFM_KERNELS, dev)
     check_sfm_agreement(dev)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    frames = to_u8(orbit_sequence(num_frames=SIFT_FRAMES, h=SIFT_H, w=SIFT_W,
+                                  num_points=400))
+    phase("frames SIFT", t0, f"{SIFT_FRAMES} x {SIFT_H}x{SIFT_W} uint8 "
+          "rendered")
+    records.update(check_sift_kernels(frames, dev))
+    sift_launches = run_sfm(frames, sfm_config("sift"),
+                            f"SIFT-{SIFT_FEATURES}", SIFT_KERNELS, dev)
+    del frames
+    check_sift_agreement(dev)
 
     kernels = [dict(name=k, route="cuda",
                     source=f"slam_loop_closing_tpu_torch/csrc/{SOURCES[k]}",
                     replaces=REPLACES[k],
                     launches=(video_launches[k] + stream_launches[k]
-                              + sfm_launches[k]),
+                              + sfm_launches[k] + sift_launches[k]),
                     **records[k])
                for k in ck.LAUNCHES]
     print(json.dumps({"kernels": kernels}))

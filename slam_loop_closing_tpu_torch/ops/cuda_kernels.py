@@ -12,18 +12,21 @@ Each wrapper dispatches on the device of the tensors it is given:
 Each launch adds one to the wrapper's entry in :data:`LAUNCHES`, so a run can
 show that its main path went through the kernels.
 
-=====================  =============================  ==========================
-wrapper                source                         replaces (TPU kernel)
-=====================  =============================  ==========================
-fast_score_nms_blur    csrc/fast_score_nms_blur.cu    ``_fast_kernel``
-extract_patches        csrc/extract_patches.cu        ``_patch_kernel``
-band_count_tiles       csrc/band_counts.cu            ``_band_d1_kernel`` and
-                                                      ``_band_counts_kernel``
-pair_counts            csrc/band_counts.cu            ``_pair_d1_kernel``
-hamming_nn             csrc/hamming_nn.cu             ``_hamming_nn_kernel``
-hamming_knn2           csrc/hamming_nn.cu             ``_hamming_knn2_kernel``
-motion_support         csrc/motion_support.cu         ``_support_kernel``
-=====================  =============================  ==========================
+=====================  ============================  ===========================
+wrapper                source                        replaces (TPU kernel)
+=====================  ============================  ===========================
+fast_score_nms_blur    csrc/fast_score_nms_blur.cu   ``_fast_kernel``
+extract_patches        csrc/extract_patches.cu       ``_patch_kernel``
+band_count_tiles       csrc/band_counts.cu           ``_band_d1_kernel`` and
+                                                     ``_band_counts_kernel``
+pair_counts            csrc/band_counts.cu           ``_pair_d1_kernel``
+hamming_nn             csrc/hamming_nn.cu            ``_hamming_nn_kernel``
+hamming_knn2           csrc/hamming_nn.cu            ``_hamming_knn2_kernel``
+motion_support         csrc/motion_support.cu        ``_support_kernel``
+l2_knn2                csrc/l2_knn2.cu               ``_l2_knn2_kernel``
+gauss_stack_resp       csrc/gauss_stack_resp.cu      ``_gauss_stack_resp_kernel``
+                                                     and ``_gauss_stack_kernel``
+=====================  ============================  ===========================
 """
 
 from __future__ import annotations
@@ -38,11 +41,13 @@ from slam_loop_closing_tpu_torch.ops import fast as fast_ops
 from slam_loop_closing_tpu_torch.ops import image as image_ops
 from slam_loop_closing_tpu_torch.ops import matching
 from slam_loop_closing_tpu_torch.ops import orb
+from slam_loop_closing_tpu_torch.ops import sift as sift_ops
 from slam_loop_closing_tpu_torch.utils import cuda_build
 
 LAUNCHES = {"fast_score_nms_blur": 0, "extract_patches": 0,
             "band_count_tiles": 0, "pair_counts": 0, "hamming_nn": 0,
-            "hamming_knn2": 0, "motion_support": 0}
+            "hamming_knn2": 0, "motion_support": 0, "l2_knn2": 0,
+            "gauss_stack_resp": 0}
 
 
 def reset_launch_counts() -> None:
@@ -450,3 +455,144 @@ def motion_support(xy_q: torch.Tensor, xy_t_matched: torch.Tensor,
             out.data_ptr(), batch, q.shape[-2], _square_f32(radius),
             _square_f32(tau))
     return out
+
+
+# --------------------------------------------------------------------------
+# G: squared-L2 top-2 of frame pairs
+# --------------------------------------------------------------------------
+
+_L2_PAIRS_PER_PASS = 16   # bounds the plain version's [P, N, M] block
+L2_DIM = 128
+
+
+def l2_knn2_plain(desc_q: torch.Tensor, valid_q: torch.Tensor,
+                  desc_t: torch.Tensor, valid_t: torch.Tensor,
+                  qidx: torch.Tensor, tidx: torch.Tensor):
+    """Squared-L2 top-2 of the frame pairs (``qidx[p]``, ``tidx[p]``) of the
+    stores ``desc_q`` [Fq, N, 128] / ``desc_t`` [Ft, M, 128] float32 with
+    validity ``valid_q`` [Fq, N] / ``valid_t`` [Ft, M]: ([P, N] d1 float32,
+    idx int32, d2 float32), :func:`..matching.knn2` of
+    :func:`..matching.l2sq_matrix` (the JAX package's reference path:
+    masked pairs at 1e30, the first index of the minimum, d2 the minimum
+    over the other columns), a bounded number of pairs at a time."""
+    outs = []
+    for s in range(0, qidx.shape[0], _L2_PAIRS_PER_PASS):
+        qi = qidx[s:s + _L2_PAIRS_PER_PASS].long()
+        ti = tidx[s:s + _L2_PAIRS_PER_PASS].long()
+        k = matching.knn2(
+            matching.l2sq_matrix(desc_q.index_select(0, qi),
+                                 desc_t.index_select(0, ti)),
+            valid_q.index_select(0, qi), valid_t.index_select(0, ti))
+        outs.append((k.d1, k.idx1, k.d2))
+    if not outs:
+        empty = torch.zeros((0, desc_q.shape[1]), dtype=torch.float32,
+                            device=desc_q.device)
+        return empty, empty.to(torch.int32), empty.clone()
+    d1, idx, d2 = (torch.cat(o) for o in zip(*outs))
+    return d1, idx.to(torch.int32), d2
+
+
+def l2_knn2(desc_q: torch.Tensor, valid_q: torch.Tensor,
+            desc_t: torch.Tensor, valid_t: torch.Tensor, qidx: torch.Tensor,
+            tidx: torch.Tensor):
+    """:func:`l2_knn2_plain`; on CUDA tensors one launch of kernel G over the
+    whole pair list (32 query rows of a pair per block, target rows staged
+    in shared memory, float32 dots). The pairs index the stores in place.
+    Bitwise equal to the plain version on integer-valued descriptors;
+    otherwise the dot products sum in another order than cuBLAS's (within
+    1e-5 at unit-norm descriptors).
+
+    Unlike the TPU kernel, which leaves invalid query rows unmasked, an
+    invalid query row gets (1e30, 0, 1e30) here, as on the JAX package's
+    reference path."""
+    for d, v, name in ((desc_q, valid_q, "query"), (desc_t, valid_t,
+                                                     "target")):
+        _require(d.dim() == 3 and d.shape[2] == L2_DIM
+                 and d.dtype == torch.float32,
+                 f"{name} descriptors must be [frames, rows, 128] float32")
+        _require(v.shape == d.shape[:2] and v.dtype == torch.bool,
+                 f"{name} validity must be [frames, rows] bool")
+    _require(qidx.shape == tidx.shape and qidx.dim() == 1,
+             "qidx and tidx must be [P]")
+    if not _on_cuda(desc_q, valid_q, desc_t, valid_t, qidx, tidx):
+        return l2_knn2_plain(desc_q, valid_q, desc_t, valid_t, qidx, tidx)
+    desc_q = desc_q.contiguous()
+    desc_t = desc_t.contiguous()
+    _require(desc_q.data_ptr() % 16 == 0 and desc_t.data_ptr() % 16 == 0,
+             "descriptors must be 16-byte aligned")
+    # converted copies stay bound until the launch returns (fault F4)
+    valid_q = valid_q.contiguous().view(torch.uint8)
+    valid_t = valid_t.contiguous().view(torch.uint8)
+    qidx = qidx.to(torch.int32).contiguous()
+    tidx = tidx.to(torch.int32).contiguous()
+    p_cnt, n_q, n_t = qidx.shape[0], desc_q.shape[1], desc_t.shape[1]
+    dev = desc_q.device
+    d1 = torch.empty((p_cnt, n_q), dtype=torch.float32, device=dev)
+    idx = torch.empty((p_cnt, n_q), dtype=torch.int32, device=dev)
+    d2 = torch.empty((p_cnt, n_q), dtype=torch.float32, device=dev)
+    _launch("l2_knn2", dev, desc_q.data_ptr(), desc_t.data_ptr(),
+            valid_q.data_ptr(), valid_t.data_ptr(), qidx.data_ptr(),
+            tidx.data_ptr(), d1.data_ptr(), idx.data_ptr(), d2.data_ptr(),
+            p_cnt, n_q, n_t)
+    return d1, idx, d2
+
+
+# --------------------------------------------------------------------------
+# H: one SIFT octave's Gaussian chain and gated DoG response
+# --------------------------------------------------------------------------
+
+GAUSS_MAX_RADIUS = 9
+GAUSS_MAX_LEVELS = 8
+
+
+def gauss_stack_resp_plain(imgs: torch.Tensor, sigmas, num_scales: int,
+                           thr: float = 0.0, edge_r: float = 10.0,
+                           border: int = 8, emit_resp: bool = True):
+    """(gauss [B, L, H, W], resp [B, S, H, W] or None) of ``[B, H, W]``
+    float32 frames: the chained reflect blurs of :func:`..sift._gaussian_chain`
+    over the ``L = len(sigmas)`` chain sigmas and, with ``emit_resp``, the
+    gated DoG response of :func:`..sift._gates` (``thr`` the float32
+    contrast threshold, ``edge_r`` the edge ratio)."""
+    gauss = sift_ops._gaussian_chain(imgs, sigmas)
+    if not emit_resp:
+        return gauss, None
+    return gauss, sift_ops._gates(gauss, num_scales, thr, edge_r, border)
+
+
+def gauss_stack_resp(imgs: torch.Tensor, sigmas, num_scales: int,
+                     thr: float = 0.0, edge_r: float = 10.0, border: int = 8,
+                     emit_resp: bool = True):
+    """:func:`gauss_stack_resp_plain`; on a CUDA tensor one call of kernel H
+    (one launch per level, one for the gates; ``emit_resp=False`` is the
+    gauss-only mode). Bitwise equal to the plain version: the same reflect
+    at every level, the same tap order without FMA contraction, exact gate
+    comparisons."""
+    _require(imgs.dim() == 3 and imgs.dtype == torch.float32,
+             "imgs must be [B, H, W] float32")
+    levels = len(sigmas)
+    _require(not emit_resp or levels == num_scales + 3,
+             "the response needs num_scales + 3 levels")
+    if not _on_cuda(imgs):
+        return gauss_stack_resp_plain(imgs, sigmas, num_scales, thr, edge_r,
+                                      border, emit_resp)
+    b, h, w = imgs.shape
+    taps = sift_ops.chain_taps(sigmas)
+    radii = [(len(t) - 1) // 2 for t in taps]
+    _require(levels <= GAUSS_MAX_LEVELS, "at most 8 levels")
+    _require(max(radii) <= GAUSS_MAX_RADIUS, "blur radius above 9")
+    _require(min(h, w) > max(radii), "frame smaller than the blur halo")
+    _require(not emit_resp or border >= 2, "the gates need border >= 2")
+    flat = [v for t in taps
+            for v in t + [0.0] * (2 * GAUSS_MAX_RADIUS + 1 - len(t))]
+    imgs = imgs.contiguous()
+    gauss = torch.empty((b, levels, h, w), dtype=torch.float32,
+                        device=imgs.device)
+    resp = (torch.empty((b, num_scales, h, w), dtype=torch.float32,
+                        device=imgs.device) if emit_resp else None)
+    _launch("gauss_stack_resp", imgs.device, imgs.data_ptr(),
+            gauss.data_ptr(), resp.data_ptr() if emit_resp else None,
+            (ctypes.c_float * len(flat))(*flat),
+            (ctypes.c_int * levels)(*radii), levels, b, h, w,
+            num_scales if emit_resp else 0, thr, edge_r,
+            float(np.float32((edge_r + 1.0) ** 2)), border)
+    return gauss, resp

@@ -3,8 +3,7 @@ rule, the banded all-pairs good-match counts behind the loop-similarity
 matrix, the Lowe-ratio matching of the Version-B pipeline, and the
 motion-coherence quality that PROSAC ranks matches by.
 
-Port of :mod:`slam_loop_closing_tpu.ops.matching` (the SIFT path's
-``ratio_matches_l2`` waits for the SIFT front-end).
+Port of :mod:`slam_loop_closing_tpu.ops.matching`.
 The per-pair rule (README.md:116-117 of the reference): each query
 descriptor's nearest valid target at Hamming distance ``d1``; a match is good
 when ``d1 < max(scale * min d1, 30)``. :func:`nn_matches_2xmin` keeps the
@@ -14,12 +13,15 @@ and :func:`block_pair_counts` for every pair of two frame blocks (kernel C's
 frame-pair entry point on the card). :func:`motion_support` (kernel E) is
 the support count behind :func:`prosac_quality`. :func:`ratio_matches_hamming`
 keeps a query's nearest target when ``d1 < ratio * d2`` (the top-2 kernel F
-on the card, over a list of frame pairs).
+on the card, over a list of frame pairs); :func:`ratio_matches_l2` is the
+SIFT path's counterpart on squared L2 distances with ``ratio**2`` (the
+top-2 kernel G).
 
 Signed descriptors are ``[..., 256]`` int8 +-1 with invalid rows zero;
-packed ones ``[..., 8]`` int32 words (:mod:`.descriptors`). Validity masks
-are always explicit. Products of +-1 values are exact in float32
-(|dot| <= 256), so the plain path uses float32 matmuls.
+packed ones ``[..., 8]`` int32 words (:mod:`.descriptors`); SIFT descriptors
+``[..., 128]`` float32. Validity masks are always explicit. Products of +-1
+values are exact in float32 (|dot| <= 256), so the plain path uses float32
+matmuls.
 """
 
 from __future__ import annotations
@@ -32,8 +34,14 @@ import torch
 from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
 from slam_loop_closing_tpu_torch.ops.descriptors import BITS
 
-BIG = 2 ** 30   # distance of a masked (query, target) pair
-BIG_F = 1e30    # float distance bound of the ratio test
+BIG = 2 ** 30   # integer distance of a masked (query, target) pair
+BIG_F = 1e30    # float distance of a masked pair, and the ratio test's bound
+
+
+def _big(dtype: torch.dtype):
+    """The masked-pair distance of a distance dtype: :data:`BIG` for
+    integers, :data:`BIG_F` for floats (the JAX package's rule)."""
+    return BIG_F if dtype.is_floating_point else BIG
 
 
 def hamming_matrix(signed_q: torch.Tensor, signed_t: torch.Tensor) -> torch.Tensor:
@@ -42,6 +50,18 @@ def hamming_matrix(signed_q: torch.Tensor, signed_t: torch.Tensor) -> torch.Tens
     dots = signed_q.to(torch.float32) @ signed_t.to(torch.float32).transpose(
         -1, -2)
     return (BITS - dots.to(torch.int32)) >> 1
+
+
+def l2sq_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., M, D] x [..., N, D] float -> [..., M, N] float32 squared L2
+    distances by the GEMM expansion ``max(|a|^2 - 2 a.b + |b|^2, 0)``."""
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    dots = a @ b.transpose(-1, -2)
+    na = torch.sum(a * a, dim=-1)
+    nb = torch.sum(b * b, dim=-1)
+    return torch.clamp_min(na[..., :, None] - 2.0 * dots + nb[..., None, :],
+                           0.0)
 
 
 def block_pair_counts_plain(signed_q: torch.Tensor, valid_q: torch.Tensor,
@@ -166,7 +186,7 @@ class Matches(NamedTuple):
     with any leading pair axes."""
 
     idx: torch.Tensor    # [..., M] int32 target index (meaningful where mask)
-    dist: torch.Tensor   # [..., M] int32 match distance
+    dist: torch.Tensor   # [..., M] int32 Hamming / float32 squared-L2 distance
     mask: torch.Tensor   # [..., M] bool
     count: torch.Tensor  # [...] int32 number of matches
 
@@ -174,9 +194,10 @@ class Matches(NamedTuple):
 def _mask_dist(dist: torch.Tensor, valid_q: torch.Tensor,
                valid_t: torch.Tensor) -> torch.Tensor:
     """``dist`` [..., M, N] with every pair of an invalid query or target
-    row set to :data:`BIG`."""
-    dist = torch.where(valid_t[..., None, :], dist, BIG)
-    return torch.where(valid_q[..., :, None], dist, BIG)
+    row set to :data:`BIG` (integer distances) or :data:`BIG_F` (float)."""
+    big = _big(dist.dtype)
+    dist = torch.where(valid_t[..., None, :], dist, big)
+    return torch.where(valid_q[..., :, None], dist, big)
 
 
 class Knn2(NamedTuple):
@@ -194,7 +215,7 @@ def knn2(dist: torch.Tensor, valid_q: torch.Tensor,
     idx1 = torch.argmin(d, dim=-1)
     d1 = torch.gather(d, -1, idx1[..., None])[..., 0]
     cols = torch.arange(d.shape[-1], device=d.device)
-    d_wo = torch.where(cols == idx1[..., None], BIG, d)
+    d_wo = torch.where(cols == idx1[..., None], _big(d.dtype), d)
     return Knn2(idx1=idx1.to(torch.int32), d1=d1,
                 d2=torch.amin(d_wo, dim=-1))
 
@@ -202,12 +223,14 @@ def knn2(dist: torch.Tensor, valid_q: torch.Tensor,
 def _ratio_from_knn2(d1: torch.Tensor, idx1: torch.Tensor, d2: torch.Tensor,
                      valid_q: torch.Tensor, ratio_eff: float) -> "Matches":
     """Ratio-test :class:`Matches` from top-2 results: keep the nearest
-    neighbour when ``d1 < ratio_eff * d2`` (float32)."""
+    neighbour when ``d1 < ratio_eff * d2`` (compared in float32). The
+    distance keeps its kind: int32 for Hamming, float32 for squared L2."""
     d1f = d1.to(torch.float32)
     mask = valid_q & (d1f < ratio_eff * d2.to(torch.float32)) & (
         d1f < BIG_F / 2)
-    return Matches(idx=idx1.to(torch.int32), dist=d1.to(torch.int32),
-                   mask=mask, count=torch.sum(mask, dim=-1, dtype=torch.int32))
+    dist = d1f if d1.dtype.is_floating_point else d1.to(torch.int32)
+    return Matches(idx=idx1.to(torch.int32), dist=dist, mask=mask,
+                   count=torch.sum(mask, dim=-1, dtype=torch.int32))
 
 
 def ratio_matches(dist: torch.Tensor, valid_q: torch.Tensor,
@@ -245,6 +268,37 @@ def ratio_matches_hamming(packed_q: torch.Tensor, valid_q: torch.Tensor,
     m = ratio_matches_hamming_pairs(packed_q[None], valid_q[None],
                                     packed_t[None], valid_t[None], zero,
                                     zero, ratio)
+    return Matches(*(a[0] for a in m))
+
+
+def ratio_matches_l2_pairs(desc_q: torch.Tensor, valid_q: torch.Tensor,
+                           desc_t: torch.Tensor, valid_t: torch.Tensor,
+                           qidx: torch.Tensor, tidx: torch.Tensor,
+                           ratio: float) -> "Matches":
+    """SIFT-path ratio matching of a list of frame pairs: the query frames
+    ``qidx`` [P] of the store ``desc_q`` [Fq, N, 128] float32 against the
+    target frames ``tidx`` of ``desc_t`` [Ft, M, 128], on squared L2
+    distances with ``ratio**2`` (``d1 < r d2  <=>  d1^2 < r^2 d2^2``, as
+    cv::BFMatcher NORM_L2 + the Lowe test), by one call of the top-2 kernel
+    (:func:`.cuda_kernels.l2_knn2`, its plain version on the CPU).
+    :class:`Matches` with a leading [P] axis and float32 distances."""
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels
+
+    d1, idx1, d2 = cuda_kernels.l2_knn2(desc_q, valid_q, desc_t, valid_t,
+                                        qidx, tidx)
+    vq = valid_q.index_select(0, qidx.long())
+    return _ratio_from_knn2(d1, idx1, d2, vq, ratio * ratio)
+
+
+def ratio_matches_l2(desc_q: torch.Tensor, valid_q: torch.Tensor,
+                     desc_t: torch.Tensor, valid_t: torch.Tensor,
+                     ratio: float) -> "Matches":
+    """SIFT-path ratio matching of one frame pair, ``[M, 128]`` /
+    ``[N, 128]`` float32 descriptors, through
+    :func:`ratio_matches_l2_pairs`."""
+    zero = torch.zeros(1, dtype=torch.int32, device=desc_q.device)
+    m = ratio_matches_l2_pairs(desc_q[None], valid_q[None], desc_t[None],
+                               valid_t[None], zero, zero, ratio)
     return Matches(*(a[0] for a in m))
 
 

@@ -13,7 +13,8 @@ import torch
 from slam_loop_closing_tpu_torch.models import sfm
 from slam_loop_closing_tpu_torch.models.loop_closing import FrameDatabase
 from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
-from slam_loop_closing_tpu_torch.ops import matching, orb
+from slam_loop_closing_tpu_torch.ops import matching, orb, sift
+from slam_loop_closing_tpu_torch.utils import checkpoint
 
 
 def brief_matrices(d, device) -> torch.Tensor:
@@ -47,6 +48,21 @@ def orb_features(feats, device) -> orb.OrbFeatures:
         signed=t(feats.signed, np.int8))
 
 
+def sift_features(feats, device) -> sift.SiftFeatures:
+    """A ``SiftFeatures`` of the JAX package (batched [B, K, ...] or one
+    frame's [K, ...]) as the port's: float32 positions, scales, angles,
+    responses and descriptors, bool validity."""
+    def t(a, dtype):
+        return torch.tensor(np.asarray(a).astype(dtype, copy=False),
+                            device=device)
+
+    return sift.SiftFeatures(
+        xy=t(feats.xy, np.float32), scale=t(feats.scale, np.float32),
+        angle=t(feats.angle, np.float32),
+        response=t(feats.response, np.float32), valid=t(feats.valid, bool),
+        descriptors=t(feats.descriptors, np.float32))
+
+
 def database(system, device) -> FrameDatabase:
     """The device frame database of a JAX ``LoopClosingSystem`` (its
     ``_db_signed``, ``_db_valid``, ``_db_xy`` and ``_db_nfeat`` arrays) as
@@ -63,18 +79,21 @@ def database(system, device) -> FrameDatabase:
 
 def map_state(state, device) -> sfm.MapState:
     """The JAX package's SfM ``MapState`` (its arrays as numpy) as the
-    port's, the signed descriptors packed into words."""
+    port's: ORB's signed int8 descriptors packed into words, SIFT's float32
+    descriptors as they are."""
     fields = {k: torch.from_numpy(np.array(v)).to(device)
-              for k, v in state._asdict().items() if k != "signed"}
-    fields["packed"] = desc_ops.signed_to_packed(
-        torch.from_numpy(np.array(state.signed, np.int8)).to(device))
+              for k, v in state._asdict().items()}
+    fields["desc"] = checkpoint.desc_from_signed(fields.pop("signed"))
     return sfm.MapState(**fields)
 
 
 def matches(m, device) -> matching.Matches:
-    """A JAX ``Matches`` as the port's (int32 indices and distances)."""
+    """A JAX ``Matches`` as the port's (int32 indices; int32 Hamming or
+    float32 squared-L2 distances)."""
+    dist = np.asarray(m.dist)
+    dist = dist.astype(np.float32 if dist.dtype.kind == "f" else np.int32)
     return matching.Matches(
         idx=torch.tensor(np.asarray(m.idx, np.int32), device=device),
-        dist=torch.tensor(np.asarray(m.dist, np.int32), device=device),
+        dist=torch.tensor(dist, device=device),
         mask=torch.tensor(np.asarray(m.mask, bool), device=device),
         count=torch.tensor(np.asarray(m.count, np.int32), device=device))

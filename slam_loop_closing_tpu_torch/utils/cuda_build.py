@@ -101,6 +101,7 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fp = ctypes.POINTER(ctypes.c_float)
+    ip = ctypes.POINTER(ctypes.c_int)
     signatures = {
         # img, score_tmp, score_out, blur_out, host taps[7], b, h, w,
         # threshold, stream
@@ -118,6 +119,14 @@ def load() -> ctypes.CDLL:
         "slam_hamming_knn2": (p, p, p, p, p, p, p, p, p, i, i, i, p),
         # q [batch, n, 4], mask, out, batch, n, radius^2, tau^2, stream
         "slam_motion_support": (p, p, p, i, i, f, f, p),
+        # q, t, valid_q, valid_t, qidx, tidx, d1, idx, d2, p_cnt, n_q, n_t,
+        # stream
+        "slam_l2_knn2": (p, p, p, p, p, p, p, p, p, i, i, i, p),
+        # img, gauss, resp, host taps [levels, 19], host radii [levels],
+        # levels, b, h, w, s (0: gauss only), thr, edge_r, (edge_r + 1)^2,
+        # border, stream
+        "slam_gauss_stack_resp": (p, p, p, fp, ip, i, i, i, i, i, f, f, f, i,
+                                  p),
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -8,7 +8,10 @@ device (the CPU test run); on a machine with a card and nvcc:
 (``--noconftest``: the tests' conftest configures JAX, which this file does
 not use.) Integer outputs, the FAST score and the blur are bitwise equal;
 so are the nearest-neighbour (D), top-2 (F), motion-support (E) and
-frame-pair count (K5) kernels.
+frame-pair count (K5) kernels, the SIFT octave kernel (H) in both modes,
+and the squared-L2 top-2 kernel (G) on integer-valued descriptors (on real
+ones its dot products sum in another order than cuBLAS's: distances within
+1e-5).
 """
 
 import dataclasses
@@ -26,7 +29,7 @@ from slam_loop_closing_tpu_torch.models.loop_closing import LoopClosingSystem
 from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
 from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
 from slam_loop_closing_tpu_torch.ops import image as image_ops
-from slam_loop_closing_tpu_torch.ops import matching
+from slam_loop_closing_tpu_torch.ops import matching, sift
 from slam_loop_closing_tpu_torch.utils.synth_video import orbit_sequence
 
 torch.set_num_threads(1)
@@ -330,3 +333,93 @@ def test_sfm_on_card_equals_cpu(dev, monkeypatch):
     assert abs(cpu[2] - card[2]) <= 3
     np.testing.assert_allclose(card[3], cpu[3], rtol=0.01)
     np.testing.assert_allclose(card[4], cpu[4], rtol=0.1)
+
+
+def _l2_stores(rng, frames_q, n_q, frames_t, n_t, integer):
+    """Descriptor stores with forced duplicate target rows (ties: d2 = d1
+    at the lowest index), queries equal to targets, invalid rows and an
+    all-invalid target frame (the last): integer-valued, or unit-norm
+    SIFT-like rows (non-negative, clipped at 0.2, renormalised)."""
+    def rows(*shape):
+        if integer:
+            return rng.integers(0, 16, shape).astype(np.float32)
+        d = rng.random(shape).astype(np.float32) ** 4
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        d = np.minimum(d, 0.2)
+        return (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(
+            np.float32)
+
+    q, t = rows(frames_q, n_q, 128), rows(frames_t, n_t, 128)
+    t[:, n_t // 2:n_t // 2 + 3] = t[:, :3]
+    q[:, :3] = t[0, :3]
+    vq = rng.random((frames_q, n_q)) > 0.1
+    vt = rng.random((frames_t, n_t)) > 0.1
+    vt[:, :3] = vt[:, n_t // 2:n_t // 2 + 3] = True
+    vt[-1] = False
+    return q, vq, t, vt
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("n,pairs", [(4000, 1), (1000, 300), (70, 5)])
+def test_l2_knn2_kernel(dev, n, pairs, integer):
+    """Kernel G against its plain version over a pair list of the stores, in
+    place: bitwise on integer-valued descriptors; on SIFT-like ones d1 and
+    d2 within 1e-5 and idx equal away from near-ties. A keyframe-step pair
+    at 4,000 rows, 300 loop-search pairs at 1,000, a small ragged case;
+    strided int64 pair lists and validity (fault F4)."""
+    rng = np.random.default_rng(n + pairs + integer)
+    q, vq, t, vt = _l2_stores(rng, 6, n, 7, n - 3, integer)
+    dq, dt = torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev)
+    vq, vt = torch.from_numpy(vq).to(dev), torch.from_numpy(vt).to(dev)
+    qidx = torch.from_numpy(rng.integers(0, 6, pairs).astype(np.int32)).to(dev)
+    tidx = torch.from_numpy(rng.integers(0, 7, pairs).astype(np.int32)).to(dev)
+    tidx[0] = 0
+    if pairs > 1:
+        tidx[-1] = 6
+    ref = ck.l2_knn2_plain(dq, vq, dt, vt, qidx, tidx)
+    q64, t64 = torch.stack([qidx, tidx], 1).long().T
+    for args in ((vq, vt, qidx, tidx), (_strided(vq), _strided(vt), q64, t64)):
+        got = ck.l2_knn2(dq, args[0], dt, args[1], args[2], args[3])
+        if integer:
+            assert all(torch.equal(g, r) for g, r in zip(got, ref))
+            continue
+        for g, r in (got[0], ref[0]), (got[2], ref[2]):
+            assert float((g - r).abs().max()) < 1e-5
+        tie = (ref[2] - ref[0]).abs() < 1e-5
+        assert torch.equal(got[1][~tie], ref[1][~tie])
+    d1, idx, d2 = (x.cpu() for x in got)
+    ok0 = vq[int(qidx[0]), :3].cpu()
+    # a query equal to a duplicated target: distance ~0, d2 = d1
+    assert (d1[0, :3][ok0] < 1e-6).all()
+    assert torch.equal(d2[0, :3][ok0], d1[0, :3][ok0])
+    assert (idx[0, :3][ok0] == torch.arange(3)[ok0]).all()
+    inv = ~vq[qidx.long()].cpu()
+    assert (d1[inv] == 1e30).all() and (idx[inv] == 0).all()
+    if pairs > 1:
+        assert (d1[-1] == 1e30).all() and (d2[-1] == 1e30).all()
+
+
+@pytest.mark.parametrize("emit_resp", [True, False])
+@pytest.mark.parametrize("b,h,w", [(2, 1080, 1920), (3, 135, 240),
+                                   (1, 61, 77)])
+def test_gauss_stack_resp_kernel_bitwise(dev, b, h, w, emit_resp):
+    """Kernel H against its plain version on blob texture (coarse noise
+    upsampled): a 1080p octave 0, a small octave (1080p's octave 3) and a
+    ragged one; the Gaussian stack and the gated response bitwise."""
+    rng = np.random.default_rng(h)
+    coarse = torch.from_numpy(
+        rng.random((b, h // 8 + 1, w // 8 + 1)).astype(np.float32)).to(dev)
+    imgs = image_ops.resize_bilinear(coarse, h, w).contiguous()
+    cfg = sift.SiftConfig()
+    s = cfg.scales_per_octave
+    sig = sift._chain_sigmas(s, cfg.sigma0)
+    args = (imgs, sig, s, sift._contrast_threshold(cfg), cfg.edge_threshold)
+    before = ck.LAUNCHES["gauss_stack_resp"]
+    got = ck.gauss_stack_resp(*args, emit_resp=emit_resp)
+    assert ck.LAUNCHES["gauss_stack_resp"] == before + 1
+    ref = ck.gauss_stack_resp_plain(*args, emit_resp=emit_resp)
+    assert torch.equal(got[0], ref[0])
+    if emit_resp:
+        assert torch.equal(got[1], ref[1]) and int((got[1] > 0).sum()) > 5
+    else:
+        assert got[1] is None and ref[1] is None

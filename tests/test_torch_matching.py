@@ -426,3 +426,146 @@ def test_new_wrappers_refuse_other_devices():
             torch.empty((2, 4), dtype=torch.bool, device="meta"),
             torch.zeros(1, dtype=torch.int32, device="meta"),
             torch.zeros(1, dtype=torch.int32, device="meta"))
+
+
+# --------------------------------------------------------------------------
+# the SIFT path: squared-L2 distances and float sentinels
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["invalid_targets", "invalid_query"])
+def test_ratio_matches_float_sentinels_equal_jax(case):
+    """A float distance matrix through knn2 / ratio_matches: masked pairs
+    take the float sentinel 1e30 (not the integer 2^30), and the match
+    distance stays float32. One case with every target invalid, one with an
+    invalid query row; d1, d2, idx, mask and dist equal the JAX package's."""
+    rng = np.random.default_rng(21)
+    dist = rng.random((12, 9)).astype(np.float32) * 4.0
+    vq = np.ones(12, bool)
+    vt = np.ones(9, bool)
+    if case == "invalid_targets":
+        vt[:] = False
+    else:
+        vq[3] = False
+        vt[4] = False
+    args_j = (jnp.asarray(dist), jnp.asarray(vq), jnp.asarray(vt))
+    args_t = (torch.from_numpy(dist), torch.from_numpy(vq),
+              torch.from_numpy(vt))
+    kj, kt = jmatch.knn2(*args_j), tmatch.knn2(*args_t)
+    for name in ("d1", "d2", "idx1"):
+        np.testing.assert_array_equal(getattr(kt, name).numpy(),
+                                      np.asarray(getattr(kj, name)))
+    mj = jmatch.ratio_matches(*args_j, 0.8 * 0.8)
+    mt = tmatch.ratio_matches(*args_t, 0.8 * 0.8)
+    assert mt.dist.dtype == torch.float32
+    for name in ("idx", "dist", "mask", "count"):
+        np.testing.assert_array_equal(getattr(mt, name).numpy(),
+                                      np.asarray(getattr(mj, name)))
+    if case == "invalid_targets":
+        assert (kt.d1.numpy() == np.float32(1e30)).all() and not mt.count
+    else:
+        assert float(kt.d1[3]) == float(kt.d2[3]) == np.float32(1e30)
+        assert int(mt.count) > 0
+
+
+@pytest.fixture(scope="module")
+def l2_int_inputs():
+    """Integer-valued 128-d descriptors (the GEMM expansion is exact):
+    a 3-frame query store and a 4-frame target store, near copies for ratio
+    matches, exact duplicates among the targets (ties: d2 = d1 at the
+    lowest index), invalid rows and an all-invalid target frame."""
+    rng = np.random.default_rng(22)
+    q = rng.integers(0, 16, (3, 50, 128)).astype(np.float32)
+    t = rng.integers(0, 16, (4, 60, 128)).astype(np.float32)
+    q[:, 10:25] = t[1, 30:45] + rng.integers(-1, 2, (3, 15, 128))
+    t[:, 50:53] = t[:, 30:33]
+    vq = rng.random((3, 50)) > 0.1
+    vt = rng.random((4, 60)) > 0.1
+    vt[:, 30:33] = vt[:, 50:53] = True
+    vt[3] = False
+    return q, vq, t, vt
+
+
+def test_l2sq_and_ratio_matches_l2_equal_jax(l2_int_inputs):
+    """One frame pair: l2sq_matrix bitwise, and ratio_matches_l2 (through
+    kernel G's plain version) with idx, dist, mask and count equal to the
+    JAX package's XLA path."""
+    q, vq, t, vt = l2_int_inputs
+    ref_d = jmatch.l2sq_matrix(jnp.asarray(q[0]), jnp.asarray(t[1]))
+    got_d = tmatch.l2sq_matrix(torch.from_numpy(q[0]), torch.from_numpy(t[1]))
+    np.testing.assert_array_equal(got_d.numpy(), np.asarray(ref_d))
+    ref = jmatch.ratio_matches_l2(jnp.asarray(q[0]), jnp.asarray(vq[0]),
+                                  jnp.asarray(t[1]), jnp.asarray(vt[1]), 0.8)
+    got = tmatch.ratio_matches_l2(torch.from_numpy(q[0]),
+                                  torch.from_numpy(vq[0]),
+                                  torch.from_numpy(t[1]),
+                                  torch.from_numpy(vt[1]), 0.8)
+    for name in ("idx", "dist", "mask", "count"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)))
+    assert int(got.count) >= 10
+
+
+def test_l2_knn2_pairs_equal_jax(l2_int_inputs):
+    """Kernel G's plain version over a pair list of the two stores, in
+    place: (d1, idx, d2) bitwise the JAX reference path's
+    knn2(l2sq_matrix(...)) per pair, every row (invalid rows and the
+    all-invalid target frame give (1e30, 0, 1e30)); the TPU kernel's
+    (interpret mode, its bf16 cross term is exact on these integers) on
+    valid query rows; ratio_matches_l2_pairs equal to ratio_matches_l2."""
+    q, vq, t, vt = l2_int_inputs
+    qidx = torch.tensor([0, 2, 1, 0], dtype=torch.int32)
+    tidx = torch.tensor([1, 1, 3, 0], dtype=torch.int32)
+    d1, idx, d2 = cuda_kernels.l2_knn2(
+        torch.from_numpy(q), torch.from_numpy(vq), torch.from_numpy(t),
+        torch.from_numpy(vt), qidx, tidx)
+    assert d1.dtype == d2.dtype == torch.float32 and idx.dtype == torch.int32
+    pairs = tmatch.ratio_matches_l2_pairs(
+        torch.from_numpy(q), torch.from_numpy(vq), torch.from_numpy(t),
+        torch.from_numpy(vt), qidx, tidx, 0.75)
+    for p, (a, b) in enumerate(zip(qidx.tolist(), tidx.tolist())):
+        ref = jmatch.knn2(jmatch.l2sq_matrix(jnp.asarray(q[a]),
+                                             jnp.asarray(t[b])),
+                          jnp.asarray(vq[a]), jnp.asarray(vt[b]))
+        np.testing.assert_array_equal(d1[p].numpy(), np.asarray(ref.d1))
+        np.testing.assert_array_equal(idx[p].numpy(), np.asarray(ref.idx1))
+        np.testing.assert_array_equal(d2[p].numpy(), np.asarray(ref.d2))
+        one = jmatch.ratio_matches_l2(jnp.asarray(q[a]), jnp.asarray(vq[a]),
+                                      jnp.asarray(t[b]), jnp.asarray(vt[b]),
+                                      0.75)
+        for name in ("idx", "dist", "mask", "count"):
+            np.testing.assert_array_equal(getattr(pairs, name)[p].numpy(),
+                                          np.asarray(getattr(one, name)))
+        if b == 3:
+            assert (d1[p].numpy() == np.float32(1e30)).all()
+            continue
+        tpu = pallas_kernels.l2_knn2(jnp.asarray(q[a]), jnp.asarray(t[b]),
+                                     jnp.asarray(vt[b]), tile_m=32,
+                                     interpret=True)
+        for got, want in zip((d1[p], idx[p], d2[p]), tpu):
+            np.testing.assert_array_equal(got.numpy()[vq[a]],
+                                          np.asarray(want)[vq[a]])
+    # duplicated targets 30..32 / 50..52 of frame 1: ties at d2 = d1
+    dup = (idx[0].numpy() >= 30) & (idx[0].numpy() < 33) & vq[0]
+    assert dup.any() and (d2[0].numpy()[dup] <= d1[0].numpy()[dup]).all()
+    empty = cuda_kernels.l2_knn2(
+        torch.from_numpy(q), torch.from_numpy(vq), torch.from_numpy(t),
+        torch.from_numpy(vt), qidx[:0], tidx[:0])
+    assert all(e.shape == (0, 50) for e in empty)
+
+
+def test_l2_wrappers_refuse_other_devices():
+    meta = torch.empty((2, 4, 128), device="meta")
+    vmeta = torch.empty((2, 4), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError):
+        cuda_kernels.l2_knn2(meta, vmeta, meta, vmeta,
+                             torch.zeros(1, dtype=torch.int32, device="meta"),
+                             torch.zeros(1, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError):
+        cuda_kernels.gauss_stack_resp(torch.empty((1, 64, 64), device="meta"),
+                                      (1.6,) * 6, 3)
+    ones = torch.ones((2, 4), dtype=torch.bool)
+    with pytest.raises(ValueError):   # [F, N, 8] words are not descriptors
+        cuda_kernels.l2_knn2(torch.zeros((2, 4, 8)), ones,
+                             torch.zeros((2, 4, 8)), ones,
+                             torch.zeros(1, dtype=torch.int32),
+                             torch.zeros(1, dtype=torch.int32))

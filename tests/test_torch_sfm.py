@@ -7,7 +7,9 @@ the track table's duplicate-index scatter, the OBJ writer, checkpoints);
 then ``SfMPipeline.run`` on test_sfm.py's 24-frame fixture, with the JAX
 package's RANSAC minimal sets injected into the port (``sfm._minimal_sets``
 is the port's one draw), through the host loop, ``use_scan`` and the staged
-backend.
+backend; and with the SIFT detector on test_sfm_sift.py's fixture, the JAX
+front-end's outputs fed through the port's ``_frontend`` seam with the
+draws.
 
 Tolerances, float32 on both sides: lie within 2e-6 (5e-6 for the log),
 camera within 2e-3 px for the undistortion and 5e-5 relative for a
@@ -443,6 +445,14 @@ def jax_run(jcfg, frames, tmp_path_factory):
     """The JAX package's ``SfMPipeline.run`` (host loop, fused backend):
     (result, log text, {key: minimal sets drawn with it}, the keyframe
     step of frame STEP_FRAME as numpy: input state, inputs, key, output)."""
+    return _jax_pipeline_run(jcfg, frames, tmp_path_factory.mktemp("jax"),
+                             max_keyframes=32, max_points=8192,
+                             max_obs=32768)
+
+
+def _jax_pipeline_run(jcfg, frames, data_dir, **caps):
+    """``SfMPipeline.run`` of the JAX package with every minimal-set draw
+    recorded by its key; see :func:`jax_run`."""
     draws, step = {}, {}
     sample, sfm_step = jransac._sample_minimal_sets, jsfm._sfm_step
 
@@ -466,9 +476,8 @@ def jax_run(jcfg, frames, tmp_path_factory):
     jax.clear_caches()
     try:
         stream = io.StringIO()
-        pipe = jsfm.SfMPipeline(jcfg, max_keyframes=32, max_points=8192,
-                                max_obs=32768, log=JLogger(stream=stream))
-        res = pipe.run(frames, data_dir=str(tmp_path_factory.mktemp("jax")))
+        pipe = jsfm.SfMPipeline(jcfg, log=JLogger(stream=stream), **caps)
+        res = pipe.run(frames, data_dir=str(data_dir))
     finally:
         jransac._sample_minimal_sets = sample
         jsfm._sfm_step = sfm_step
@@ -494,12 +503,12 @@ class JaxDraws:
     def install(self, monkeypatch):
         verify = tsfm._verify_loop_scores
 
-        def verify_with_keys(packed, kp_valid, kp_norm, cand_q, *args,
+        def verify_with_keys(desc, kp_valid, kp_norm, cand_q, *args,
                              **kwargs):
             self.loop_keys = jax.random.split(jax.random.PRNGKey(7),
                                               cand_q.shape[0])
             self.candidate = 0
-            return verify(packed, kp_valid, kp_norm, cand_q, *args, **kwargs)
+            return verify(desc, kp_valid, kp_norm, cand_q, *args, **kwargs)
 
         monkeypatch.setattr(tsfm, "_minimal_sets", self)
         monkeypatch.setattr(tsfm, "_verify_loop_scores", verify_with_keys)
@@ -574,11 +583,15 @@ def test_log_lines_equal_jax(jax_run, port_runs):
     """The host loop's log, line by line: the same words and integers, and
     the printed floats within END_RTOL (the OBJ's timestamped path
     aside)."""
-    ref = jax_run[1].splitlines()
-    got = port_runs["host"][1].splitlines()
-    assert len(got) == len(ref) > 60
-    assert sum(line.startswith("Keyframe ") for line in got) == \
-        int(jax_run[0].state.kf_count) - 1
+    _assert_logs_equal(port_runs["host"][1], jax_run[1],
+                       int(jax_run[0].state.kf_count), min_lines=60)
+
+
+def _assert_logs_equal(got: str, ref: str, keyframes: int,
+                       min_lines: int = 20) -> None:
+    got, ref = got.splitlines(), ref.splitlines()
+    assert len(got) == len(ref) > min_lines
+    assert sum(line.startswith("Keyframe ") for line in got) == keyframes - 1
 
     def parts(line):
         line = re.sub(r"Saved OBJ: \S+", "Saved OBJ: <path>", line)
@@ -648,10 +661,123 @@ def test_checkpoint_resume(port_runs, tcfg, frames, jax_run):
         assert torch.equal(getattr(res.state, name), getattr(ref.state, name))
 
 
-def test_sift_detector_raises(tcfg):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tsfm.SfMPipeline(dataclasses.replace(tcfg, detector="sift"),
-                         device="cpu")
+# ---------------------------------------------------------------------------
+# the SIFT detector: test_sfm_sift.py's fixture
+# ---------------------------------------------------------------------------
+
+SIFT_CAPS = dict(max_keyframes=16, max_points=4096, max_obs=16384)
+
+
+@pytest.fixture(scope="module")
+def sift_jcfg():
+    """test_sfm_sift.py's configuration."""
+    cam = jc.CameraConfig(fx=0.8 * 192, fy=0.8 * 192, cx=96.0, cy=72.0,
+                          k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0)
+    return dataclasses.replace(
+        jc.PipelineConfig(), detector="sift", camera=cam,
+        sift=jc.SiftConfig(num_features=400, num_octaves=2),
+        match=jc.MatchConfig(ratio_threshold=0.85),
+        keyframe=jc.KeyframeConfig(min_median_displacement=2.0,
+                                   max_median_displacement=150.0,
+                                   min_tracked_features=25,
+                                   min_inlier_ratio=0.3, min_inliers=15),
+        loop_verify=jc.LoopVerifyConfig(min_matches=25, min_inliers=15,
+                                        min_inlier_ratio=0.4,
+                                        min_pose_inliers=8),
+        ransac=jc.RansacConfig(num_hypotheses=128))
+
+
+@pytest.fixture(scope="module")
+def sift_frames():
+    return orbit_sequence(num_frames=24, h=144, w=192, num_points=250,
+                          seed=11)
+
+
+@pytest.fixture(scope="module")
+def sift_jax_run(sift_jcfg, sift_frames, tmp_path_factory):
+    """The JAX package's SIFT run (as :func:`jax_run`) and its front-end's
+    outputs as the port's tensors."""
+    front = jsfm.SfMPipeline(sift_jcfg, **SIFT_CAPS)._frontend(sift_frames)
+    front = tuple(T(np.asarray(a)) for a in front)
+    run = _jax_pipeline_run(sift_jcfg, sift_frames,
+                            tmp_path_factory.mktemp("jax_sift"), **SIFT_CAPS)
+    return run + (front,)
+
+
+@pytest.fixture(scope="module")
+def sift_port_run(sift_jcfg, sift_frames, sift_jax_run, tmp_path_factory):
+    """The port's SIFT ``run()`` with the JAX front-end's outputs (through
+    the ``_frontend`` seam) and the JAX draws: (result, log text)."""
+    mp = pytest.MonkeyPatch()
+    try:
+        JaxDraws(sift_jax_run[2], len(sift_frames)).install(mp)
+        stream = io.StringIO()
+        pipe = tsfm.SfMPipeline(
+            tc.PipelineConfig.from_json(sift_jcfg.to_json()),
+            log=TLogger(stream=stream), device="cpu", **SIFT_CAPS)
+        pipe._frontend = lambda frames: sift_jax_run[4]
+        res = pipe.run(sift_frames,
+                       data_dir=str(tmp_path_factory.mktemp("port_sift")))
+    finally:
+        mp.undo()
+    return res, stream.getvalue()
+
+
+def test_sift_run_equals_jax(sift_jax_run, sift_port_run):
+    """SIFT with the JAX front-end's outputs and draws: the keyframes, map
+    counts, track table and loop (pair and counts) exact, the reprojection
+    errors within END_RTOL; the descriptor store is float32 [..., 128]."""
+    jres, res = sift_jax_run[0], sift_port_run[0]
+    k = int(jres.state.kf_count)
+    assert int(res.state.kf_count) == k >= 4
+    np.testing.assert_array_equal(res.state.kf_frame[:k].numpy(),
+                                  np.asarray(jres.state.kf_frame)[:k])
+    assert int(res.state.point_count) == int(jres.state.point_count) > 20
+    assert int(res.state.obs_count) == int(jres.state.obs_count) > 40
+    np.testing.assert_array_equal(res.state.kp_to_point[:k].numpy(),
+                                  np.asarray(jres.state.kp_to_point)[:k])
+    assert _loop(res) == _loop(jres)
+    assert res.state.desc.dtype == torch.float32
+    assert res.state.desc.shape[-1] == 128
+    np.testing.assert_allclose(
+        [res.reproj_before_ba, res.reproj_after_ba, res.reproj_final],
+        [jres.reproj_before_ba, jres.reproj_after_ba, jres.reproj_final],
+        rtol=END_RTOL)
+
+
+def test_sift_log_lines_equal_jax(sift_jax_run, sift_port_run):
+    """The SIFT run's log, line by line (as test_log_lines_equal_jax)."""
+    _assert_logs_equal(sift_port_run[1], sift_jax_run[1],
+                       int(sift_jax_run[0].state.kf_count))
+
+
+def test_sift_own_frontend_builds_map(sift_jcfg, sift_frames):
+    """The port's own SIFT front-end and draws (test_sfm_sift.py's
+    assertions): at least 4 keyframes, more than 20 points and 40
+    observations, a float32 [..., 128] descriptor store."""
+    pipe = tsfm.SfMPipeline(tc.PipelineConfig.from_json(sift_jcfg.to_json()),
+                            log=lambda *a: None, device="cpu", **SIFT_CAPS)
+    state, infos = pipe.run_frontend_and_keyframes(sift_frames)
+    assert int(state.kf_count) >= 4
+    assert int(state.point_count) > 20 and int(state.obs_count) > 40
+    assert state.desc.dtype == torch.float32 and state.desc.shape[-1] == 128
+    assert len(infos) == len(sift_frames) - 1
+
+
+def test_sift_checkpoints_load_across_packages(sift_jax_run, tmp_path):
+    """A SIFT map state (float32 descriptors in the ``signed`` field) written
+    by the JAX package loads into the port, and back."""
+    jstate = jax.device_get(sift_jax_run[0].state)
+    jpath = jckpt.save_map_state(tmp_path / "jax.npz", jstate)
+    state = tckpt.load_map_state(jpath, "cpu")
+    assert state.desc.dtype == torch.float32
+    for a, b in zip(state, convert.map_state(jstate, "cpu")):
+        assert torch.equal(a, b)
+    back = jckpt.load_map_state(tckpt.save_map_state(tmp_path / "port.npz",
+                                                     state))
+    for name in jsfm.MapState._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(back, name)),
+                                      np.asarray(getattr(jstate, name)))
 
 
 # ---------------------------------------------------------------------------
@@ -667,7 +793,7 @@ def _compare_states(got: tsfm.MapState, ref, pose_atol: float,
                     point_atol: float) -> None:
     """Map arrays, the trash slots excluded: integers and masks exact."""
     ref = convert.map_state(ref, "cpu")
-    for name in ("kf_count", "kf_frame", "kp_valid", "packed", "kp_to_point",
+    for name in ("kf_count", "kf_frame", "kp_valid", "desc", "kp_to_point",
                  "point_count", "obs_count"):
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
     for name in ("point_valid", "obs_cam", "obs_point", "obs_valid"):
