@@ -82,8 +82,49 @@ each printed with its result and seconds on its own line:
     keyframes and loop pair, map counts within 1%, reprojection errors
     within 10% (R11's terms; the front-end is not bitwise across devices:
     cuBLAS and MKL sum the float32 octave resize in other orders, and
-    CUDA's atan2 and exp differ from the CPU's in the last bit).
+    CUDA's atan2 and exp differ from the CPU's in the last bit);
+13. kernel I: the d1-only Hamming nearest-neighbour kernel against its
+    plain version, bitwise, at 8192 x 8192 rows with every target valid
+    (bench_hamming.py's shape; the target rows split over blocks) and at
+    2000 x 2000 with a fifth of the targets invalid and with none valid;
+    CUDA-event times, G row pairs/s, and the time of the +-1 bf16 matmul
+    and ``amax`` on operands unpacked beforehand (the library form; it
+    materialises the [M, N] block);
+14. slice config 2: BASELINE config 2 at full width and depth — 500 frames
+    of 1080p uint8 resident on the card, ORB-4000 grid 8, the front-end in
+    batches of 50; kernels A and B against their plain versions on one such
+    batch, at the front-end's own levels and per-level keypoints (bitwise);
+    kernel I's pair-list form on the first chunk of 8,192 frame pairs of
+    that store against its plain version (bitwise) and, after the count
+    rule, against the frame-pair count kernel K5, both on the store as it
+    is (the orbit fills every slot) and with 5% of its rows, part of a
+    frame and two whole frames marked invalid; the pair route and the tile
+    route on the first 192 frames with those holes (equal matrices); then
+    ``dense_pair_counts_chunked(min_gap=1)`` warm and timed — one launch
+    of kernel I per chunk of 8,192 pairs, counted — and the Version-A rule
+    at gap 30 / 0.15 / 50 on the matrix (loops found, the closing loop
+    among them); on the same descriptors
+    ``banded_pair_counts_chunked(min_gap=1)`` (kernel C's tiles), whose
+    [F, F] matrix must equal the pair route's everywhere;
+15. slice multi-video: ``process_videos_batched`` on 6 videos x 48 frames x
+    540x960 uint8, ORB-1000, gap 16 (bench_multivideo.py's configuration):
+    kernels A and B against their plain versions on one video's batch,
+    kernel C against its plain version on the flat padded store of all six
+    videos with every video's tile list (``matching.video_band_tiles``, what
+    the path gives the kernel), bitwise; then the path: kernels A and B
+    launch, kernel C exactly once, and every video's loops equal
+    ``process_video`` on that video alone;
+16. CLI: 32 frames of the 144x192 orbit written as ``frame_%04d.png``,
+    ``cli.main(["loop", "--frames", dir, "--batched", ...])`` on the card —
+    ``loop_closures.txt`` parses and its loops equal the library call's,
+    the PNGs of ``save_results`` exist and decode —
+    ``cli.main(["reconstruct", "--frames", dir, "--no-obj", ...])`` with
+    phase 9's configuration as ``--config`` (most frames become keyframes,
+    BA lowers the reprojection error, no OBJ is written), and six rendered
+    chessboard views through ``cli.main(["calibrate", ...])``:
+    RMS below 1 px.
 
+Synthetic frames are rendered by a pool of worker processes (numpy only).
 Each main path runs with the launch counts set to 0 just before it and read
 just after. Any failure raises (exit code 1). The line before the last is
 the kernels' JSON record: each kernel's launches on the main paths, its
@@ -92,7 +133,8 @@ version's, and its bound (the larger of the bytes it must move over 3.35
 TB/s and the operations it does over the H100's peak for their type: int8
 tensor-core for the Hamming kernels, whose +-1 form is an int8 product, and
 float32 SIMT otherwise), all from this run's inputs; ``library_ms`` is null
-(no single PyTorch call computes any kernel's function). The last line is
+(no single PyTorch call computes the kernel's function) except for kernel
+I, where it is the matmul-and-``amax`` form at 8192 x 8192. The last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX; run
 without the package beside it, it fails at the package's import.
 """
@@ -100,10 +142,16 @@ without the package beside it, it fails at the package's import.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
+import multiprocessing
+import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -123,7 +171,8 @@ REPLACES = {"fast_score_nms_blur": f"{PKG}:736",     # _fast_kernel
             "pair_counts": f"{PKG}:378",              # _pair_d1_kernel
             "hamming_nn": f"{PKG}:57",                # _hamming_nn_kernel
             "hamming_knn2": f"{PKG}:239",             # _hamming_knn2_kernel
-            "motion_support": f"{PKG}:649"}           # _support_kernel
+            "motion_support": f"{PKG}:649",           # _support_kernel
+            "hamming_d1": f"{PKG}:140"}               # _hamming_d1_kernel
 SOURCES = {"fast_score_nms_blur": "fast_score_nms_blur.cu",
            "extract_patches": "extract_patches.cu",
            "band_count_tiles": "band_counts.cu",
@@ -132,7 +181,8 @@ SOURCES = {"fast_score_nms_blur": "fast_score_nms_blur.cu",
            "hamming_knn2": "hamming_nn.cu",
            "motion_support": "motion_support.cu",
            "l2_knn2": "l2_knn2.cu",
-           "gauss_stack_resp": "gauss_stack_resp.cu"}
+           "gauss_stack_resp": "gauss_stack_resp.cu",
+           "hamming_d1": "hamming_d1.cu"}
 VIDEO_KERNELS = ("fast_score_nms_blur", "extract_patches", "band_count_tiles")
 STREAM_KERNELS = ("fast_score_nms_blur", "extract_patches", "pair_counts",
                   "hamming_nn", "motion_support")
@@ -156,6 +206,17 @@ SIFT_G_ATOL = 1e-5          # kernel G on real descriptors: dots summed in
                             # another order than cuBLAS's
 SIFT_KEYPOINTS_AGREE = 0.99  # CPU keypoints found on the card (phase 12)
 SIFT_FIXTURE_HYPOTHESES = 256
+D1_BENCH_ROWS = 8192                # bench_hamming.py's shape
+C2_FRAMES, C2_H, C2_W = 500, 1080, 1920   # BASELINE config 2
+C2_FEATURES, C2_BATCH, C2_PAIRS_PER_CALL = 4000, 50, 8192
+C2_KERNELS = ("fast_score_nms_blur", "extract_patches", "hamming_d1")
+HOLE_FRAMES = (5, 70)       # frames marked wholly invalid in the store checks
+C2_HOLE_DEPTH = 192         # frames of the two routes' comparison with holes
+MV_VIDEOS, MV_FRAMES, MV_H, MV_W = 6, 48, 540, 960   # bench_multivideo.py
+MV_FEATURES = 1000
+MV_KERNELS = ("fast_score_nms_blur", "extract_patches", "band_count_tiles")
+CLI_FRAMES, CLI_H, CLI_W = 32, 144, 192   # the tests' orbit fixture
+RENDER_WORKERS = 8
 # bounds: the H100 SXM's published peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12}
@@ -213,6 +274,33 @@ def max_ulp(a, b) -> int:
 
 def to_u8(frames: np.ndarray) -> np.ndarray:
     return (np.clip(frames, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def _render_chunk(job) -> np.ndarray:
+    """uint8 frames of one chunk of an orbit (runs in a worker process)."""
+    from slam_loop_closing_tpu_torch.utils.synth_video import \
+        render_cylinder_trajectory
+
+    thetas, h, w, num_points, seed = job
+    return to_u8(render_cylinder_trajectory(thetas, np.zeros(len(thetas)), h,
+                                            w, num_points, seed=seed))
+
+
+def render_orbits(pool, specs) -> list[np.ndarray]:
+    """``orbit_sequence`` of every (num_frames, h, w, num_points, seed) of
+    ``specs`` as uint8, the frames spread over the pool's workers: the
+    texture depends on the seed only, so a chunk of angles renders the same
+    frames as the whole orbit."""
+    jobs, owner = [], []
+    for i, (n, h, w, num_points, seed) in enumerate(specs):
+        thetas = 2 * np.pi * np.arange(n) / n
+        chunk = max(1, min(16, -(-n // RENDER_WORKERS)))
+        for s in range(0, n, chunk):
+            jobs.append((thetas[s:s + chunk], h, w, num_points, seed))
+            owner.append(i)
+    parts = list(pool.map(_render_chunk, jobs))
+    return [np.concatenate([p for p, o in zip(parts, owner) if o == i])
+            for i in range(len(specs))]
 
 
 def slice_config():
@@ -1408,6 +1496,508 @@ def check_sift_agreement(dev) -> None:
           f"{cpu['errs'].tolist()} card {card['errs'].tolist()}")
 
 
+def check_front_end_kernels(name: str, imgs, cfg) -> None:
+    """Kernels A and B against their plain versions at the shapes
+    ``orb.detect_and_describe_batch`` gives them for one batch ``imgs``
+    [B, H, W] float32 under the ORB config ``cfg``: every pyramid level of
+    the whole batch through kernel A, then that level's own keypoints (its
+    share of the feature budget) on its blurred frames through kernel B.
+    Bitwise. The plain FAST runs over the batch 10 frames at a time, which
+    bounds its memory and changes nothing per frame."""
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    from slam_loop_closing_tpu_torch.ops import fast as fast_ops
+    from slam_loop_closing_tpu_torch.ops import image as image_ops
+    from slam_loop_closing_tpu_torch.ops import orb
+
+    t0 = time.perf_counter()
+    thr = cfg.fast_threshold / 255.0
+    levels = image_ops.pyramid(imgs, cfg.num_levels, cfg.scale_factor)
+    budgets = orb._level_budgets(cfg.num_features, cfg.num_levels,
+                                 cfg.scale_factor)
+    for lv, budget in zip(levels, budgets):
+        shape = f"{name}, level {tuple(lv.shape)}"
+        score, blur = ck.fast_score_nms_blur(lv, thr)
+        for s in range(0, lv.shape[0], 10):
+            check_bitwise(f"kernel A ({shape})",
+                          [score[s:s + 10], blur[s:s + 10]],
+                          ck.fast_score_nms_blur_plain(lv[s:s + 10], thr))
+        xy, _, _, blurred = fast_ops.detect_with_blur(
+            lv, threshold=thr, num_features=budget, nms_radius=cfg.nms_radius,
+            border=cfg.border, grid_cell=cfg.grid_cell)
+        check_bitwise(f"kernel B ({shape}, {budget} keypoints)",
+                      [ck.extract_patches(blurred, xy)],
+                      [ck.extract_patches_plain(blurred, xy)])
+    phase(f"kernels A and B, {name}", t0,
+          f"one front-end batch of {imgs.shape[0]} frames, levels "
+          f"{[tuple(lv.shape[1:]) for lv in levels]} with {budgets} keypoints "
+          f"a frame: score, blur and patches bitwise")
+
+
+def _random_words(gen, *shape):
+    """Uniform random descriptor words [..., 8] int32 on the generator's
+    device."""
+    import torch
+
+    return torch.randint(-2 ** 31, 2 ** 31, (*shape, 8), generator=gen,
+                         device=gen.device, dtype=torch.int64).to(torch.int32)
+
+
+def check_d1_kernel(dev) -> dict:
+    """Kernel I's single-pair form against its plain version at the bench
+    shape and with invalid targets; returns the bench shape's numbers."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n = D1_BENCH_ROWS
+    pq, pt = _random_words(gen, n), _random_words(gen, n)
+    pt[n // 2:n // 2 + 64] = pq[:64]                  # distance 0
+    vt = torch.ones(n, dtype=torch.bool, device=dev)
+    got = ck.hamming_nn_d1(pq, pt, vt)
+    ref = ck.hamming_nn_d1_plain(pq, pt, vt)
+    check_bitwise("hamming_nn_d1 8192 x 8192", [got], [ref])
+    if int(got[:64].max()) != 0 or int(got.max()) > 256:
+        raise AssertionError("kernel I misses the planted duplicates")
+    ms = cuda_ms(lambda: ck.hamming_nn_d1(pq, pt, vt), 20)
+    plain_ms = cuda_ms(lambda: ck.hamming_nn_d1_plain(pq, pt, vt), 5)
+    # the library form: one +-1 matmul on the tensor cores and a row max,
+    # on operands unpacked to bf16 beforehand (exact: |dot| <= 256)
+    sq = desc_ops.bits_to_signed(desc_ops.packed_to_bits(pq)).to(torch.bfloat16)
+    st = desc_ops.bits_to_signed(desc_ops.packed_to_bits(pt)).to(torch.bfloat16)
+
+    def library():
+        return torch.amax(sq @ st.T, dim=1)
+
+    lib = ((256 - library().to(torch.float32)) * 0.5).to(torch.int32)
+    check_bitwise("matmul-and-amax form", [lib], [ref])
+    library_ms = cuda_ms(library, 20)
+    b = bound(2 * n * 32 + n + n * 4, 512.0 * n * n, "int8")
+    bench = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                 bound_by=b["bound_by"], library_ms=library_ms,
+                 g_row_pairs_per_s=n * n / ms / 1e6)
+    phase("kernel I hamming_nn_d1", t0,
+          f"{n} x {n} rows, all targets valid: bitwise; kernel {ms:.3f} ms = "
+          f"{bench['g_row_pairs_per_s']:.1f} G row pairs/s, plain "
+          f"{plain_ms:.3f} ms, bf16 matmul + amax {library_ms:.3f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    del sq, st, lib
+
+    t0 = time.perf_counter()
+    m = NUM_FEATURES
+    pq, pt = _random_words(gen, m), _random_words(gen, m)
+    pt[100:140] = pq[:40]
+    vt = torch.rand(m, generator=gen, device=dev) < 0.8
+    vt[100:120] = True
+    vt[120:140] = False                # duplicates 20-39 are invalid targets
+    for valid_t in (vt, torch.zeros_like(vt)):
+        got = ck.hamming_nn_d1(pq, pt, valid_t)
+        check_bitwise("hamming_nn_d1 2000 x 2000", [got],
+                      [ck.hamming_nn_d1_plain(pq, pt, valid_t)])
+    if not bool((got == 2 ** 30).all()):
+        raise AssertionError("no valid target must give 2^30 on every row")
+    got = ck.hamming_nn_d1(pq, pt, vt)
+    if int(got[:20].max()) != 0 or int(got[20:40].min()) == 0:
+        raise AssertionError("kernel I counts an invalid target row")
+    ms_b = cuda_ms(lambda: ck.hamming_nn_d1(pq, pt, vt), 20)
+    phase("kernel I invalid targets", t0,
+          f"{m} x {m} rows, {int(vt.sum())} targets valid, and none valid "
+          f"(2^30 everywhere): bitwise; kernel {ms_b:.3f} ms")
+    return bench
+
+
+def with_holes(valid):
+    """A copy of the validity [F, N] with frames ``HOLE_FRAMES`` wholly
+    invalid, the last fifth of frame 3's rows and a seeded 5% of all rows."""
+    import torch
+
+    gen = torch.Generator(device=valid.device).manual_seed(5)
+    holes = valid & (torch.rand(valid.shape, generator=gen,
+                                device=valid.device) >= 0.05)
+    holes[list(HOLE_FRAMES)] = False
+    holes[3, -(valid.shape[1] // 5):] = False
+    return holes
+
+
+def check_d1_pairs(packed, valid, bench: dict, dev) -> dict:
+    """Kernel I's pair-list form on the first chunk of config 2's pairs, on
+    the store in place: against its plain version and, after the count
+    rule, against the frame-pair count kernel. Returns kernel I's record."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    from slam_loop_closing_tpu_torch.ops import matching
+
+    t0 = time.perf_counter()
+    f, n = valid.shape
+    pq, pt = torch.tril_indices(f, f, offset=-1, device=dev)
+    pq, pt = pq[:C2_PAIRS_PER_CALL], pt[:C2_PAIRS_PER_CALL]
+    p_cnt = pq.shape[0]
+    # the orbit fills every slot of every frame: first the chunk on a copy
+    # of the validity with holes, so short and empty frames are seen too
+    holes = with_holes(valid)
+    got = ck.hamming_d1_pairs(packed, packed, holes, pq, pt)
+    check_bitwise("hamming_d1_pairs, validity with holes", [got],
+                  [ck.hamming_d1_pairs_plain(packed, packed, holes, pq, pt)])
+    check_bitwise("kernel I + count rule vs pair_counts, validity with holes",
+                  [matching.all_pairs_good_counts(packed, holes, pq, pt)],
+                  [ck.pair_counts(packed, holes, pq, pt)])
+    got = ck.hamming_d1_pairs(packed, packed, valid, pq, pt)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = ck.hamming_d1_pairs_plain(packed, packed, valid, pq, pt)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    check_bitwise("hamming_d1_pairs", [got], [ref])
+    err = float((got - ref).abs().max())
+    del ref
+    counts = matching.all_pairs_good_counts(packed, valid, pq, pt)
+    k5 = ck.pair_counts(packed, valid, pq, pt)
+    check_bitwise("kernel I + count rule vs pair_counts", [counts], [k5])
+    ms = cuda_ms(lambda: ck.hamming_d1_pairs(packed, packed, valid, pq, pt), 3)
+    k5_ms = cuda_ms(lambda: ck.pair_counts(packed, valid, pq, pt), 3)
+    nv = valid.sum(1).cpu().numpy()
+    # every query row of a pair against the pair's valid target rows
+    work = pair_work(np.full(f, n), nv, pq.cpu(), pt.cpu())
+    b = bound(packed.numel() * 4 + valid.numel() + 8 * p_cnt + got.numel() * 4,
+              512.0 * work, "int8")
+    phase("kernel I hamming_d1_pairs", t0,
+          f"{p_cnt} pairs of the {f} x {n}-row store in place: bitwise "
+          f"against the plain version on all pairs, counts equal "
+          f"pair_counts' (max {int(counts.max())}), both also with "
+          f"{int((valid & ~holes).sum())} rows marked invalid (frames "
+          f"{HOLE_FRAMES} whole); kernel {ms:.3f} ms = "
+          f"{p_cnt * n * n / ms / 1e6:.1f} G row pairs/s, plain "
+          f"{plain_ms:.1f} ms (one run), pair_counts {k5_ms:.3f} ms, bound "
+          f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                library_ms=bench["library_ms"],
+                library_at=f"{D1_BENCH_ROWS} x {D1_BENCH_ROWS} rows, one pair",
+                shape=f"{p_cnt} pairs x {n} x {n} rows",
+                single_pair_8192=bench)
+
+
+def run_config2(frames_u8: np.ndarray, bench: dict, dev):
+    """BASELINE config 2, the dense all-pairs main path at full width:
+    returns (launch counts of the timed run, kernel I's record)."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.config import LoopConfig, OrbConfig
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
+    from slam_loop_closing_tpu_torch.ops import image as image_ops
+    from slam_loop_closing_tpu_torch.ops import matching, orb
+
+    t0 = time.perf_counter()
+    cfg = OrbConfig(num_features=C2_FEATURES, grid_cell=8)
+    loop_cfg = LoopConfig()                  # gap 30, threshold 0.15, >= 50
+    b = frames_u8.shape[0]
+    frames_dev = torch.from_numpy(frames_u8).to(dev)
+    pattern = orb.brief_matrices(cfg, dev)
+
+    def front_end():
+        s_chunks, v_chunks = [], []
+        for s in range(0, b, C2_BATCH):
+            feats = orb.detect_and_describe_batch(
+                image_ops.ship_frames(frames_dev[s:s + C2_BATCH], dev), cfg,
+                pattern)
+            s_chunks.append(feats.signed)
+            v_chunks.append(feats.keypoints.valid)
+        return torch.cat(s_chunks), torch.cat(v_chunks)
+
+    # warm-up pass: its store feeds kernel I's check and the dense warm-up
+    signed, valid = front_end()
+    nfeat = valid.sum(1).cpu().numpy().astype(np.int64)
+    phase("config 2 store", t0,
+          f"{b} x {C2_H}x{C2_W} uint8 on the card, ORB-{C2_FEATURES} grid 8, "
+          f"batches of {C2_BATCH}: valid rows a frame {nfeat.min()}-"
+          f"{nfeat.max()}")
+    check_front_end_kernels(
+        f"config 2's batch of {C2_BATCH} x {C2_H}x{C2_W}, ORB-{C2_FEATURES}",
+        image_ops.ship_frames(frames_dev[:C2_BATCH], dev), cfg)
+    record = check_d1_pairs(desc_ops.signed_to_packed(signed), valid, bench,
+                            dev)
+
+    # both dense routes on the first frames of the store with holes in its
+    # validity (the descriptors stay: an invalid row is masked, not read)
+    t0 = time.perf_counter()
+    d = min(b, C2_HOLE_DEPTH)
+    holes = with_holes(valid[:d])
+    by_pairs = matching.dense_pair_counts_chunked(
+        signed[:d], holes, min_gap=1, pairs_per_call=C2_PAIRS_PER_CALL)
+    by_tiles = matching.banded_pair_counts_chunked(signed[:d], holes, 1)
+    if not np.array_equal(by_pairs, by_tiles) or by_pairs[HOLE_FRAMES[1]].any(
+            ) or by_pairs[:, HOLE_FRAMES[0]].any():
+        raise AssertionError(
+            f"with holes in the validity the pair route and the tile route "
+            f"differ at {int((by_pairs != by_tiles).sum())} of {d * d} "
+            f"entries, or an empty frame has counts")
+    phase("config 2 routes, validity with holes", t0,
+          f"the first {d} frames, {int((valid[:d] & ~holes).sum())} rows "
+          f"marked invalid (frames {HOLE_FRAMES} whole): the pair route's and "
+          f"the tile route's [{d}, {d}] matrices equal, empty frames count 0")
+    del holes, by_pairs, by_tiles
+
+    t0 = time.perf_counter()
+    n_pairs = b * (b - 1) // 2
+    chunks = -(-n_pairs // C2_PAIRS_PER_CALL)
+    matching.dense_pair_counts_chunked(
+        signed, valid, min_gap=1, pairs_per_call=C2_PAIRS_PER_CALL)  # warm
+    del signed, valid
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t_fe = time.perf_counter()
+    signed, valid = front_end()
+    torch.cuda.synchronize()
+    t_dense = time.perf_counter()
+    t_fe = t_dense - t_fe
+    cnp = matching.dense_pair_counts_chunked(
+        signed, valid, min_gap=1, pairs_per_call=C2_PAIRS_PER_CALL)
+    t_dense = time.perf_counter() - t_dense
+    launches = dict(ck.LAUNCHES)
+    if launches["hamming_d1"] != chunks:
+        raise AssertionError(f"kernel I launched {launches['hamming_d1']} "
+                             f"times for {chunks} chunks of pairs")
+    if not all(launches[k] for k in C2_KERNELS):
+        raise AssertionError(f"a kernel of the path did not run: {launches}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del frames_dev
+
+    # the Version-A rule on the dense matrix, the gap applied at decision
+    denom = np.maximum(np.minimum(nfeat[:, None], nfeat[None, :]), 1)
+    sims = cnp / denom
+    q = np.arange(b)[:, None]
+    t = np.arange(b)[None, :]
+    loops = ((t <= q - loop_cfg.min_loop_gap)
+             & (sims > loop_cfg.loop_threshold)
+             & (cnp >= loop_cfg.min_matches))
+    if cnp.shape != (b, b) or np.triu(cnp).any() or not np.isfinite(sims).all():
+        raise AssertionError("the dense matrix is not a finite strict lower "
+                             "triangle")
+    if not loops[3 * b // 4:, :b // 4].any():
+        raise AssertionError("the orbit's closing loop was not found")
+    row_pairs = n_pairs * float(C2_FEATURES) ** 2
+    phase("slice config 2", t0,
+          f"front-end {t_fe:.3f} s = {b / t_fe:.1f} frames/s; "
+          f"dense_pair_counts_chunked(min_gap=1): {n_pairs} frame pairs in "
+          f"{chunks} launches of kernel I, {t_dense:.3f} s = "
+          f"{n_pairs / t_dense:.0f} frame pairs/s = "
+          f"{row_pairs / t_dense / 1e9:.1f} G row pairs/s; front-end + dense "
+          f"{t_fe + t_dense:.3f} s = {b / (t_fe + t_dense):.2f} frames/s; "
+          f"{int(loops.sum())} loops at gap {loop_cfg.min_loop_gap}, closing "
+          f"loop found; peak device memory {peak_gb:.2f} GB; launches "
+          f"{launches}")
+
+    # the same band through kernel C's tiles
+    t0 = time.perf_counter()
+    matching.banded_pair_counts_chunked(signed, valid, 1)           # warm
+    torch.cuda.synchronize()
+    t_tiles = time.perf_counter()
+    tiles = matching.banded_pair_counts_chunked(signed, valid, 1)
+    t_tiles = time.perf_counter() - t_tiles
+    if not np.array_equal(tiles, cnp):
+        raise AssertionError(
+            f"the pair route and the tile route differ at "
+            f"{int((tiles != cnp).sum())} of {b * b} entries")
+    phase("config 2 tile route", t0,
+          f"banded_pair_counts_chunked(min_gap=1), 8-frame tiles through "
+          f"kernel C: the same [{b}, {b}] matrix; {t_tiles:.3f} s = "
+          f"{row_pairs / t_tiles / 1e9:.1f} G row pairs/s (pair route "
+          f"{t_dense:.3f} s)")
+    return launches, record
+
+
+def run_multivideo(videos_u8: np.ndarray, dev) -> dict:
+    """bench_multivideo.py's main path; returns the timed run's launches."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.config import (LoopConfig, OrbConfig,
+                                                    PipelineConfig)
+    from slam_loop_closing_tpu_torch.models.loop_closing import \
+        LoopClosingSystem
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    from slam_loop_closing_tpu_torch.ops import image as image_ops
+    from slam_loop_closing_tpu_torch.ops import matching, orb
+
+    v, b = videos_u8.shape[:2]
+    cfg = dataclasses.replace(
+        PipelineConfig(), orb=OrbConfig(num_features=MV_FEATURES),
+        loop=LoopConfig(min_loop_gap=max(3, b // 3)))
+
+    # the kernels at this path's shapes: A and B on one video's batch, C on
+    # the flat padded store of all videos with every video's tile list
+    check_front_end_kernels(
+        f"one video of {b} x {MV_H}x{MV_W}, ORB-{MV_FEATURES}",
+        image_ops.ship_frames(videos_u8[0], dev), cfg.orb)
+    t0 = time.perf_counter()
+    pattern = orb.brief_matrices(cfg.orb, dev)
+    feats = [orb.detect_and_describe_batch(image_ops.ship_frames(video, dev),
+                                           cfg.orb, pattern)
+             for video in videos_u8]
+    valid = torch.stack([f.keypoints.valid for f in feats])
+    valid[1, 7] = False                        # an empty frame in one video
+    packed, vflat, qidx, tidx, _, _ = matching.video_band_tiles(
+        torch.stack([f.signed for f in feats]), valid, cfg.loop.min_loop_gap)
+    got = ck.band_count_tiles(packed, vflat, qidx, tidx, 16)
+    check_bitwise("band_count_tiles on the videos' flat store", [got],
+                  [ck.band_count_tiles_plain(packed, vflat, qidx, tidx, 16)])
+    phase("kernel C, multi-video", t0,
+          f"the flat store of {v} videos padded to {packed.shape[0]} frames x "
+          f"{packed.shape[1]} rows (one frame emptied), {qidx.shape[0]} tiles "
+          f"of 16x16 frames, block indices {qidx.tolist()} x {tidx.tolist()}:"
+          f" bitwise (max count {int(got.max())})")
+    del feats, packed, vflat, got
+
+    t0 = time.perf_counter()
+    LoopClosingSystem.process_videos_batched(videos_u8, cfg, device=dev)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t_run = time.perf_counter()
+    loops = LoopClosingSystem.process_videos_batched(videos_u8, cfg,
+                                                     device=dev)
+    t_run = time.perf_counter() - t_run
+    launches = dict(ck.LAUNCHES)
+    if launches["band_count_tiles"] != 1 or not all(
+            launches[k] for k in MV_KERNELS):
+        raise AssertionError(f"multi-video launches: {launches}")
+    for i in range(v):
+        alone = LoopClosingSystem(cfg, max_frames=b, device=dev
+                                  ).process_video(videos_u8[i])
+        if not alone or loops[i] != alone:
+            raise AssertionError(
+                f"video {i}: {len(loops[i])} loops batched, {len(alone)} "
+                f"alone, first differing "
+                f"{[(x, y) for x, y in zip(loops[i], alone) if x != y][:2]}")
+    phase("slice process_videos_batched", t0,
+          f"{v} videos x {b} x {MV_H}x{MV_W} uint8 from host, "
+          f"ORB-{MV_FEATURES}, gap {cfg.loop.min_loop_gap}: loops per video "
+          f"{[len(x) for x in loops]}, each equal to process_video alone; "
+          f"warm run {t_run * 1e3:.1f} ms = {v * b / t_run:.1f} frames/s; "
+          f"launches {launches}")
+    return launches
+
+
+def _cli(argv) -> str:
+    """Run the port's CLI in this process; its console output."""
+    from slam_loop_closing_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} returned {rc}")
+    return buf.getvalue()
+
+
+def run_cli(frames_u8: np.ndarray, dev) -> None:
+    """The CLI's loop, reconstruct and calibrate modes on the card."""
+    from PIL import Image
+
+    from slam_loop_closing_tpu_torch.config import PipelineConfig
+    from slam_loop_closing_tpu_torch.models.loop_closing import \
+        LoopClosingSystem
+    from slam_loop_closing_tpu_torch.utils import io as io_utils
+    from slam_loop_closing_tpu_torch.utils import synth_video
+
+    t0 = time.perf_counter()
+    small = ["--frame-skip", "1", "--num-features", "300", "--device", dev]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        seq = tmp / "seq"
+        seq.mkdir()
+        for i, f in enumerate(frames_u8):
+            io_utils._write_png(seq / f"frame_{i:04d}.png", f)
+        out = _cli(["loop", "--frames", str(seq), "--batched", "--min-gap",
+                    "20", "--output", str(tmp / "results")] + small)
+        text = (tmp / "results" / "loop_closures.txt").read_text()
+        found = [(int(a), int(b), int(c), d) for a, b, c, d in re.findall(
+            r"Frame (\d+) <-> Frame (\d+)\n  Matches: (\d+)\n"
+            r"  Similarity: (\S+)", text)]
+        cfg = PipelineConfig()
+        cfg = dataclasses.replace(
+            cfg, orb=dataclasses.replace(cfg.orb, num_features=300),
+            loop=dataclasses.replace(cfg.loop, min_loop_gap=20, frame_skip=1))
+        system = LoopClosingSystem(cfg, max_frames=512, device=dev)
+        ref = system.process_video(io_utils.load_frames_gray(
+            io_utils.enumerate_frames(seq)))
+        want = [(c.current_frame_id, c.matched_frame_id, c.num_matches,
+                 f"{c.similarity_score:g}") for c in ref]
+        if not found or found != want:
+            raise AssertionError(f"loop_closures.txt holds {len(found)} loops, "
+                                 f"the library call {len(want)}, or they "
+                                 "differ")
+        for needle in ("=== Processing Complete ===",
+                       f"Total frames processed: {len(frames_u8)}",
+                       f"Loop closures detected: {len(found)}",
+                       "Throughput: ", "Results: "):
+            if needle not in out:
+                raise AssertionError(f"the console block lacks {needle!r}")
+        pngs = sorted((tmp / "results").glob("*.png"))
+        names = {p.name for p in pngs}
+        expect = {f"loop_{a}_{b}.png" for a, b, _, _ in found} | {
+            f"matches_{i}_{i - 1}.png"
+            for i in range(cfg.loop.viz_every, len(frames_u8),
+                           cfg.loop.viz_every)}
+        if names != expect:
+            raise AssertionError(f"save_results wrote {sorted(names)[:4]}..., "
+                                 f"expected {sorted(expect)[:4]}...")
+        for p in pngs:
+            with Image.open(p) as im:
+                im.load()
+                if im.size != (2 * CLI_W, CLI_H) or im.mode != "RGB":
+                    raise AssertionError(f"{p.name}: {im.size} {im.mode}")
+        phase("cli loop", t0,
+              f"{len(frames_u8)} x {CLI_H}x{CLI_W} PNGs, --batched on the "
+              f"card: {len(found)} loops in loop_closures.txt = the library "
+              f"call's; {len(pngs)} PNGs decode")
+
+        t0 = time.perf_counter()
+        (tmp / "sfm.json").write_text(sfm_fixture()[0].to_json())
+        out = _cli(["reconstruct", "--frames", str(seq), "--no-obj", "--scan",
+                    "--max-keyframes", "32", "--config", str(tmp / "sfm.json"),
+                    "--frame-skip", "1", "--data-dir", str(tmp / "data"),
+                    "--device", dev])
+        if "frames/sec end-to-end" not in out or "OBJ:" in out or (
+                tmp / "data" / "reconstruction").exists():
+            raise AssertionError("cli reconstruct --no-obj: " + out[-300:])
+        kf = int(re.search(r"Total keyframes: (\d+)", out).group(1))
+        before = float(re.search(
+            r"Reprojection error BEFORE BA: (\S+) px", out).group(1))
+        final = float(re.search(
+            r"FINAL reprojection error: (\S+) px", out).group(1))
+        if kf < len(frames_u8) // 2 or not final < before:
+            raise AssertionError(f"cli reconstruct: {kf} keyframes, "
+                                 f"reprojection {before} -> {final} px")
+        loop = re.search(r"Best loop closure: (.*)", out)
+        phase("cli reconstruct", t0,
+              f"--no-obj --scan on the card, the SfM fixture's configuration:"
+              f" {kf} keyframes, loop {loop.group(1) if loop else 'none'}, "
+              f"reprojection {before:g} -> {final:g} px, no OBJ written")
+
+        t0 = time.perf_counter()
+        _, boards = synth_video.chessboard_views()
+        calib = tmp / "calib"
+        calib.mkdir()
+        for i, img in enumerate(boards):
+            io_utils._write_png(calib / f"board_{i}.png", to_u8(img))
+        out = _cli(["calibrate", "--images", str(calib), "--device", dev,
+                    "--output-overlays", str(tmp / "overlays")])
+        rms = float(re.search(r"reprojection error: (\S+) px", out).group(1))
+        fx = float(re.search(r"K =\n\[\[\s*(\S+)", out).group(1))
+        if not rms < 1.0 or abs(fx - 300.0) > 15.0 or len(
+                list((tmp / "overlays").glob("corners_*.png"))) != len(boards):
+            raise AssertionError(f"cli calibrate: RMS {rms} px, fx {fx}")
+        phase("cli calibrate", t0,
+              f"{len(boards)} chessboard views: RMS {rms:.4f} px (< 1), fx "
+              f"{fx:.2f} (true 300), overlays written")
+
+
 def main() -> int:
     import torch
 
@@ -1421,8 +2011,6 @@ def main() -> int:
               "from the repository's root", file=sys.stderr)
         return 1
     from slam_loop_closing_tpu_torch.utils import cuda_build
-    from slam_loop_closing_tpu_torch.utils.synth_video import orbit_sequence
-
     dev = "cuda"
     t0 = time.perf_counter()
     name = torch.cuda.get_device_name(0)
@@ -1444,9 +2032,21 @@ def main() -> int:
     phase("build", t0, f"{lib.name}")
 
     t0 = time.perf_counter()
-    frames = to_u8(orbit_sequence(num_frames=FRAMES, h=H, w=W, num_points=300))
+    specs = [(FRAMES, H, W, 300, 0), (SFM_FRAMES, SFM_H, SFM_W, 400, 0),
+             (SIFT_FRAMES, SIFT_H, SIFT_W, 400, 0),
+             (C2_FRAMES, C2_H, C2_W, 400, 0), (CLI_FRAMES, CLI_H, CLI_W, 250, 3)]
+    specs += [(MV_FRAMES, MV_H, MV_W, 300, seed) for seed in range(MV_VIDEOS)]
+    with concurrent.futures.ProcessPoolExecutor(
+            RENDER_WORKERS, mp_context=multiprocessing.get_context("spawn")
+            ) as pool:
+        frames, sfm_frames, sift_frames, c2_frames, cli_frames, *videos = \
+            render_orbits(pool, specs)
     frames_dev = torch.from_numpy(frames).to(dev)
-    phase("frames", t0, f"{FRAMES} x {H}x{W} uint8 rendered, on the card")
+    phase("frames", t0, f"{sum(sp[0] for sp in specs)} uint8 orbit frames "
+          f"rendered by {RENDER_WORKERS} worker processes ({FRAMES} x {H}x{W}"
+          f", {SFM_FRAMES} x {SFM_H}x{SFM_W}, {SIFT_FRAMES} x {SIFT_H}x"
+          f"{SIFT_W}, {C2_FRAMES} x {C2_H}x{C2_W}, {MV_VIDEOS} x {MV_FRAMES} "
+          f"x {MV_H}x{MV_W}, {CLI_FRAMES} x {CLI_H}x{CLI_W})")
 
     records = check_kernels(frames_dev, dev)
     video_launches, video_loops = run_slice(frames_dev, dev)
@@ -1456,29 +2056,31 @@ def main() -> int:
     del frames, frames_dev
     torch.cuda.empty_cache()
     records.update(check_sfm_kernels(dev))
-    sfm_launches = run_sfm(
-        to_u8(orbit_sequence(num_frames=SFM_FRAMES, h=SFM_H, w=SFM_W,
-                             num_points=400)),
-        sfm_config(), f"ORB-{SFM_FEATURES} grid 8", SFM_KERNELS, dev)
+    sfm_launches = run_sfm(sfm_frames, sfm_config(),
+                           f"ORB-{SFM_FEATURES} grid 8", SFM_KERNELS, dev)
     check_sfm_agreement(dev)
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    frames = to_u8(orbit_sequence(num_frames=SIFT_FRAMES, h=SIFT_H, w=SIFT_W,
-                                  num_points=400))
-    phase("frames SIFT", t0, f"{SIFT_FRAMES} x {SIFT_H}x{SIFT_W} uint8 "
-          "rendered")
-    records.update(check_sift_kernels(frames, dev))
-    sift_launches = run_sfm(frames, sfm_config("sift"),
+    records.update(check_sift_kernels(sift_frames, dev))
+    sift_launches = run_sfm(sift_frames, sfm_config("sift"),
                             f"SIFT-{SIFT_FEATURES}", SIFT_KERNELS, dev)
-    del frames
+    del sift_frames, sfm_frames
     check_sift_agreement(dev)
+    torch.cuda.empty_cache()
 
+    c2_launches, records["hamming_d1"] = run_config2(
+        c2_frames, check_d1_kernel(dev), dev)
+    del c2_frames
+    torch.cuda.empty_cache()
+    mv_launches = run_multivideo(np.stack(videos), dev)
+    run_cli(cli_frames, dev)
+
+    paths = (video_launches, stream_launches, sfm_launches, sift_launches,
+             c2_launches, mv_launches)
     kernels = [dict(name=k, route="cuda",
                     source=f"slam_loop_closing_tpu_torch/csrc/{SOURCES[k]}",
                     replaces=REPLACES[k],
-                    launches=(video_launches[k] + stream_launches[k]
-                              + sfm_launches[k] + sift_launches[k]),
+                    launches=sum(path[k] for path in paths),
                     **records[k])
                for k in ck.LAUNCHES]
     print(json.dumps({"kernels": kernels}))

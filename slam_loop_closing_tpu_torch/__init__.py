@@ -9,9 +9,13 @@ so tests can hold the two against each other on the same numpy inputs.
 * ``ops``    — image pyramid, FAST, ORB, descriptor layouts, band matching.
                The TPU's Pallas kernels on this path are hand-written CUDA
                (``csrc/``), wrapped in :mod:`.ops.cuda_kernels`.
-* ``models`` — ``LoopClosingSystem`` (the Version-A batched loop detector).
-* ``utils``  — kernel build/load, synthetic video, loop-closure writers,
-               stage timing, conversion of the JAX package's arrays.
+* ``models`` — ``LoopClosingSystem`` (Version A: batched, live and
+               multi-video), ``SfMPipeline`` (Version B), chessboard
+               calibration.
+* ``utils``  — kernel build/load, synthetic video, frame IO and the report
+               writers, the KITTI adapter, stage timing and traces,
+               conversion of the JAX package's arrays.
+* ``cli``    — ``extract | loop | all | reconstruct | calibrate``.
 
 This package imports ``torch`` and numpy, never ``jax``.
 """

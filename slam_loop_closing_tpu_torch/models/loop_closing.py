@@ -19,6 +19,13 @@ reference only declares (loop_closing.hpp:29-80; behaviour in README.md:
 * :meth:`LoopClosingSystem.process_video`: the batched path — ORB of a
   whole stack, ONE banded all-pairs good-match pass, the loop rule;
   candidates in (i, j) row-major order.
+* :meth:`LoopClosingSystem.process_videos_batched`: several videos at once
+  (:func:`videos_loop_scores`, :func:`loops_from_video_scores`) — the
+  front-end a video at a time, then the bands of all videos through one
+  launch of the band-count kernel.
+* :meth:`LoopClosingSystem.save_results`: ``loop_closures.txt``,
+  ``loop_X_Y.png`` per loop and ``matches_X_Y.png`` between every
+  ``viz_every``-th consecutive frame pair (README.md:140-147).
 
 The frame database lives on the device as fixed-capacity arrays
 (:class:`FrameDatabase`), written in place. A frame's whole device work —
@@ -38,6 +45,7 @@ import torch
 
 from slam_loop_closing_tpu_torch.config import (CameraConfig, PipelineConfig,
                                                 RansacConfig)
+from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
 from slam_loop_closing_tpu_torch.ops import epipolar, matching, orb, ransac
 from slam_loop_closing_tpu_torch.ops.image import ship_frames
 from slam_loop_closing_tpu_torch.utils import io as io_utils
@@ -68,6 +76,15 @@ class Frame:
     descriptors: torch.Tensor         # [N, 8] int32 packed words
     pose: np.ndarray                  # [4, 4] world->camera
     points3d: np.ndarray              # [M, 3] triangulated points (variable)
+
+    def image_f32(self) -> np.ndarray:
+        """Image as host float32 in [0, 1] (the visualization contract)."""
+        img = self.image
+        if isinstance(img, torch.Tensor):
+            img = img.cpu().numpy()
+        img = np.asarray(img)
+        return img.astype(np.float32) / (255.0 if img.dtype == np.uint8
+                                         else 1.0)
 
 
 @dataclasses.dataclass
@@ -172,6 +189,48 @@ def _readback(pending: dict) -> dict:
     for dev in devices:
         torch.cuda.current_stream(dev).synchronize()
     return {k: tuple(t.numpy() for t in v) for k, v in host.items()}
+
+
+def videos_loop_scores(videos, cfg: PipelineConfig, device):
+    """Device part of the multi-video path: ``videos`` [V, B, H, W] (numpy
+    or tensor, uint8 or float in [0, 1]) -> ([V, B, B] int32 counts,
+    [V, B, B] float32 similarities) on ``device``. The ORB front-end runs
+    one video a batch, the batch :meth:`LoopClosingSystem.process_video`
+    gives it: cuBLAS may sum a product of another batch size in another
+    order, and a video's loops must not depend on the videos beside it. The
+    bands of all videos then go through ONE launch of the band-count kernel
+    (:func:`..ops.matching.banded_pair_counts_videos`)."""
+    pattern = orb.brief_matrices(cfg.orb, device)
+    feats = [orb.detect_and_describe_batch(ship_frames(video, device),
+                                           cfg.orb, pattern)
+             for video in videos]
+    valid = torch.stack([f.keypoints.valid for f in feats])
+    nfeat = torch.sum(valid, dim=2, dtype=torch.int32)
+    counts = matching.banded_pair_counts_videos(
+        torch.stack([f.signed for f in feats]), valid, cfg.loop.min_loop_gap,
+        cfg.match.hamming_filter_scale)
+    sims = matching.similarity(counts, nfeat[:, :, None], nfeat[:, None, :])
+    return counts, sims
+
+
+def _band_hits(counts: np.ndarray, sims: np.ndarray, cfg: PipelineConfig):
+    """(i, j) of the loop rule's hits on [B, B] host score matrices, in
+    row-major order: ``j <= i - min_loop_gap``, similarity above the
+    threshold, at least ``min_matches`` good matches (README.md:119-126)."""
+    b = counts.shape[0]
+    band = np.tril(np.ones((b, b), bool), -cfg.loop.min_loop_gap)
+    return np.argwhere(band & (sims > cfg.loop.loop_threshold)
+                       & (counts >= cfg.loop.min_matches))
+
+
+def loops_from_video_scores(counts: np.ndarray, sims: np.ndarray,
+                            cfg: PipelineConfig
+                            ) -> list[list[LoopCandidate]]:
+    """Host part of the multi-video path: the Version-A loop rule over the
+    per-video [V, B, B] score matrices."""
+    return [[LoopCandidate(int(i), int(j), int(c[i, j]), float(s[i, j]))
+             for i, j in _band_hits(c, s, cfg)]
+            for c, s in zip(counts, sims)]
 
 
 class LoopClosingSystem:
@@ -359,18 +418,40 @@ class LoopClosingSystem:
     def get_loop_closures(self) -> list[LoopCandidate]:
         return self.loop_closures
 
-    def save_results(self, out_dir: str | Path) -> Path:
-        """``loop_closures.txt`` in the reference's format
-        (README.md:150-166). The PNG visualisations of the JAX package are
-        not ported."""
+    def visualize_matches(self, id1: int, id2: int, path: str | Path) -> Path:
+        """Side-by-side match image between two processed frames (hpp:56)."""
+        i = self._frame_ids.index(id1)
+        j = self._frame_ids.index(id2)
+        fi, fj = self._features_of(i), self._features_of(j)
+        m = self.match_features(fi, fj)
+        return io_utils.save_match_visualization(
+            path, self.frames[i].image_f32(), self.frames[j].image_f32(),
+            fi.keypoints.xy.cpu().numpy(), fj.keypoints.xy.cpu().numpy(),
+            m.mask.cpu().numpy(), m.idx.cpu().numpy())
+
+    def save_results(self, out_dir: str | Path,
+                     match_viz: bool = True) -> Path:
+        """``loop_closures.txt`` + visualizations (hpp:66; README.md:140-147):
+        ``loop_X_Y.png`` per loop and ``matches_X_Y.png`` between every
+        ``viz_every``-th consecutive frame pair (README.md:144)."""
         out = Path(out_dir)
         out.mkdir(parents=True, exist_ok=True)
-        return io_utils.write_loop_closures_txt(
+        txt = io_utils.write_loop_closures_txt(
             out / "loop_closures.txt",
             [{"current": c.current_frame_id, "matched": c.matched_frame_id,
               "num_matches": c.num_matches, "similarity": c.similarity_score}
              for c in self.loop_closures],
             total_frames=len(self.frames))
+        for c in self.loop_closures:
+            self.visualize_matches(
+                c.current_frame_id, c.matched_frame_id,
+                out / f"loop_{c.current_frame_id}_{c.matched_frame_id}.png")
+        if match_viz:
+            every = self.config.loop.viz_every
+            for i in range(every, len(self._frame_ids), every):
+                a, b = self._frame_ids[i], self._frame_ids[i - 1]
+                self.visualize_matches(a, b, out / f"matches_{a}_{b}.png")
+        return txt
 
     # -- batched path ------------------------------------------------------
 
@@ -400,10 +481,7 @@ class LoopClosingSystem:
             nfeat = self.db.nfeat[:b]
             sims = matching.similarity(counts, nfeat[:, None], nfeat[None, :])
             counts, sims = _readback({"s": (counts, sims)})["s"]
-            band = np.tril(np.ones((b, b), bool), -cfg.min_loop_gap)
-            hits = band & (sims > cfg.loop_threshold) & (
-                counts >= cfg.min_matches)
-            for i, j in np.argwhere(hits):
+            for i, j in _band_hits(counts, sims, self.config):
                 new_loops.append(LoopCandidate(ids[i], ids[j],
                                                int(counts[i, j]),
                                                float(sims[i, j])))
@@ -417,7 +495,34 @@ class LoopClosingSystem:
             for i in range(b)]
         return new_loops
 
+    # -- multi-video batched path ------------------------------------------
+
+    @staticmethod
+    def process_videos_batched(videos, config: PipelineConfig | None = None,
+                               *, device) -> list[list[LoopCandidate]]:
+        """All videos processed together on ``device``: ``videos``
+        [V, B, H, W] -> per-video loop candidate lists (frame indices as
+        ids), equal to :meth:`process_video` run on each video alone."""
+        cfg = config or PipelineConfig()
+        v, b = videos.shape[:2]
+        if b <= cfg.loop.min_loop_gap:
+            return [[] for _ in range(v)]
+        counts, sims = videos_loop_scores(videos, cfg, device)
+        counts, sims = _readback({"s": (counts, sims)})["s"]
+        return loops_from_video_scores(counts, sims, cfg)
+
     # -- internals ---------------------------------------------------------
+
+    def _features_of(self, idx: int) -> orb.OrbFeatures:
+        """Frame ``idx``'s features from the database (response, angle and
+        octave are not kept there: zeros)."""
+        packed, valid, xy = self.db.row(idx)
+        zeros = torch.zeros(packed.shape[0], device=self.device)
+        kps = orb.Keypoints(xy=xy, response=zeros, angle=zeros,
+                            octave=zeros.to(torch.int32), valid=valid)
+        signed = desc_ops.bits_to_signed(desc_ops.packed_to_bits(packed))
+        return orb.OrbFeatures(keypoints=kps, descriptors=packed,
+                               signed=signed * valid[:, None].to(torch.int8))
 
     def _geometry(self, i: int, j: int | torch.Tensor):
         """:func:`_pair_geometry` of database frames ``i`` (queries) and

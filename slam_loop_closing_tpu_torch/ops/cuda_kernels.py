@@ -22,6 +22,7 @@ band_count_tiles       csrc/band_counts.cu           ``_band_d1_kernel`` and
 pair_counts            csrc/band_counts.cu           ``_pair_d1_kernel``
 hamming_nn             csrc/hamming_nn.cu            ``_hamming_nn_kernel``
 hamming_knn2           csrc/hamming_nn.cu            ``_hamming_knn2_kernel``
+hamming_d1             csrc/hamming_d1.cu            ``_hamming_d1_kernel``
 motion_support         csrc/motion_support.cu        ``_support_kernel``
 l2_knn2                csrc/l2_knn2.cu               ``_l2_knn2_kernel``
 gauss_stack_resp       csrc/gauss_stack_resp.cu      ``_gauss_stack_resp_kernel``
@@ -47,7 +48,7 @@ from slam_loop_closing_tpu_torch.utils import cuda_build
 LAUNCHES = {"fast_score_nms_blur": 0, "extract_patches": 0,
             "band_count_tiles": 0, "pair_counts": 0, "hamming_nn": 0,
             "hamming_knn2": 0, "motion_support": 0, "l2_knn2": 0,
-            "gauss_stack_resp": 0}
+            "gauss_stack_resp": 0, "hamming_d1": 0}
 
 
 def reset_launch_counts() -> None:
@@ -395,6 +396,113 @@ def hamming_knn2(packed_q: torch.Tensor, valid_q: torch.Tensor,
             qidx.data_ptr(), tidx.data_ptr(), *(o.data_ptr() for o in out),
             p_cnt, n_q, n_t)
     return tuple(out)
+
+
+# --------------------------------------------------------------------------
+# I: d1-only Hamming nearest neighbour of frame pairs
+# --------------------------------------------------------------------------
+
+_D1_SLAB = 2048          # query rows per block of kernel I (256 threads x 8)
+_D1_MIN_SPLIT_ROWS = 128  # fewest target rows a split of kernel I scans
+
+
+def hamming_d1_pairs_plain(packed_q: torch.Tensor, packed_t: torch.Tensor,
+                           valid_t: torch.Tensor, qidx: torch.Tensor,
+                           tidx: torch.Tensor) -> torch.Tensor:
+    """[P, N] int32 nearest-target Hamming distance of every row of the
+    query frames ``qidx`` [P] of the store ``packed_q`` [Fq, N, 8] int32 to
+    the valid rows of the target frames ``tidx`` of ``packed_t`` [Ft, M, 8]
+    (validity ``valid_t`` [Ft, M]); 2^30 where the target frame has no valid
+    row. Query validity is the caller's. The +-1 matmul of
+    :func:`..matching.hamming_matrix` and a row minimum, a bounded number of
+    pairs at a time."""
+    outs = []
+    for s in range(0, qidx.shape[0], _KNN2_PAIRS_PER_PASS):
+        qi = qidx[s:s + _KNN2_PAIRS_PER_PASS].long()
+        ti = tidx[s:s + _KNN2_PAIRS_PER_PASS].long()
+        d = matching.hamming_matrix(_signed_frames(packed_q, qi),
+                                    _signed_frames(packed_t, ti))
+        d = torch.where(valid_t.index_select(0, ti)[:, None, :], d,
+                        matching.BIG)
+        outs.append(torch.amin(d, dim=-1))
+    if not outs:
+        return torch.zeros((0, packed_q.shape[1]), dtype=torch.int32,
+                           device=packed_q.device)
+    return torch.cat(outs).to(torch.int32)
+
+
+def _d1_splits(p_cnt: int, n_q: int, n_t: int, sm_count: int) -> int:
+    """Number of target-row splits of one kernel I launch: 1 when the pair
+    list alone gives every SM two blocks (the dense scan), else enough to,
+    with no split scanning fewer than :data:`_D1_MIN_SPLIT_ROWS` rows."""
+    blocks = p_cnt * (-(-n_q // _D1_SLAB))
+    want = -(-2 * sm_count // max(blocks, 1))
+    return max(1, min(want, n_t // _D1_MIN_SPLIT_ROWS))
+
+
+def hamming_d1_pairs(packed_q: torch.Tensor, packed_t: torch.Tensor,
+                     valid_t: torch.Tensor, qidx: torch.Tensor,
+                     tidx: torch.Tensor) -> torch.Tensor:
+    """:func:`hamming_d1_pairs_plain`; on CUDA tensors one launch of kernel I
+    over the whole pair list (8 query rows per thread in registers, target
+    rows staged in shared memory, XOR + ``__popc``). The pairs index the
+    stores in place (``qidx``/``tidx`` stay on the device: they must lie in
+    range, as the plain version's ``index_select`` checks). Bitwise equal to
+    the plain version."""
+    for w, name in ((packed_q, "query"), (packed_t, "target")):
+        _require(w.dim() == 3 and w.shape[2] == desc_ops.WORDS
+                 and w.dtype == torch.int32,
+                 f"{name} words must be [frames, rows, 8] int32")
+    _require(valid_t.shape == packed_t.shape[:2]
+             and valid_t.dtype == torch.bool,
+             "target validity must be [frames, rows] bool")
+    _require(qidx.shape == tidx.shape and qidx.dim() == 1,
+             "qidx and tidx must be [P]")
+    if not _on_cuda(packed_q, packed_t, valid_t, qidx, tidx):
+        return hamming_d1_pairs_plain(packed_q, packed_t, valid_t, qidx, tidx)
+    packed_q = packed_q.contiguous()
+    packed_t = packed_t.contiguous()
+    _require(packed_q.data_ptr() % 16 == 0 and packed_t.data_ptr() % 16 == 0,
+             "packed words must be 16-byte aligned")
+    # converted copies stay bound until the launch returns (see hamming_nn)
+    valid_t = valid_t.contiguous().view(torch.uint8)
+    qidx = qidx.to(torch.int32).contiguous()
+    tidx = tidx.to(torch.int32).contiguous()
+    p_cnt, n_q, n_t = qidx.shape[0], packed_q.shape[1], packed_t.shape[1]
+    dev = packed_q.device
+    splits = _d1_splits(
+        p_cnt, n_q, n_t,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    d1 = torch.empty((p_cnt, n_q), dtype=torch.int32, device=dev)
+    partial = (torch.empty((splits, p_cnt, n_q), dtype=torch.int32,
+                           device=dev) if splits > 1 else None)
+    _launch("hamming_d1", dev, packed_q.data_ptr(), packed_t.data_ptr(),
+            valid_t.data_ptr(), qidx.data_ptr(), tidx.data_ptr(),
+            d1.data_ptr(), partial.data_ptr() if splits > 1 else None,
+            p_cnt, n_q, n_t, splits)
+    return d1
+
+
+def hamming_nn_d1_plain(packed_q: torch.Tensor, packed_t: torch.Tensor,
+                        valid_t: torch.Tensor) -> torch.Tensor:
+    """[M] int32 nearest valid target distance of ``[M, 8]`` query rows
+    against ``[N, 8]`` target rows: :func:`hamming_d1_pairs_plain` of the
+    one pair."""
+    zero = torch.zeros(1, dtype=torch.int32, device=packed_q.device)
+    return hamming_d1_pairs_plain(packed_q[None], packed_t[None],
+                                  valid_t[None], zero, zero)[0]
+
+
+def hamming_nn_d1(packed_q: torch.Tensor, packed_t: torch.Tensor,
+                  valid_t: torch.Tensor) -> torch.Tensor:
+    """:func:`hamming_nn_d1_plain` through :func:`hamming_d1_pairs` with one
+    pair (kernel I on CUDA tensors). The same contract as ``hamming_nn(...)
+    [0]`` on valid query rows; a row with no valid target gets 2^30."""
+    _require(packed_q.dim() == 2 and packed_t.dim() == 2
+             and valid_t.dim() == 1, "one pair: [M, 8], [N, 8], [N]")
+    zero = torch.zeros(1, dtype=torch.int32, device=packed_q.device)
+    return hamming_d1_pairs(packed_q[None], packed_t[None], valid_t[None],
+                            zero, zero)[0]
 
 
 # --------------------------------------------------------------------------

@@ -1,8 +1,9 @@
-"""Image operations of the ORB front-end: frame shipping, separable Gaussian
-blur, antialiased bilinear resize and the ORB pyramid.
+"""Image operations of the ORB front-end and the calibration tool: frame
+shipping, separable Gaussian blur, bilinear sampling, antialiased bilinear
+resize and the ORB pyramid.
 
-Port of :mod:`slam_loop_closing_tpu.ops.image` (the subset the Version-A
-loop detector runs). Frames are ``[..., H, W]`` float32 in [0, 1]; every
+Port of :mod:`slam_loop_closing_tpu.ops.image` (the subset the port's
+pipelines run). Frames are ``[..., H, W]`` float32 in [0, 1]; every
 function takes a leading batch of frames where the JAX package vmaps.
 """
 
@@ -62,6 +63,24 @@ def gaussian_blur(imgs: torch.Tensor, sigma: float,
     for i in range(1, 2 * r + 1):
         out = out + k[i] * x[..., :, i:i + w]
     return out
+
+
+def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Sample ``img`` [H, W] at continuous (x, y) positions ``xy`` [..., 2]
+    with bilinear interpolation and edge clamping."""
+    h, w = img.shape
+    x = torch.clamp(xy[..., 0], 0.0, w - 1.0)
+    y = torch.clamp(xy[..., 1], 0.0, h - 1.0)
+    x0 = torch.clamp(torch.floor(x).long(), 0, w - 2)
+    y0 = torch.clamp(torch.floor(y).long(), 0, h - 2)
+    fx = x - x0
+    fy = y - y0
+    v00 = img[y0, x0]
+    v01 = img[y0, x0 + 1]
+    v10 = img[y0 + 1, x0]
+    v11 = img[y0 + 1, x0 + 1]
+    return ((1 - fy) * ((1 - fx) * v00 + fx * v01)
+            + fy * ((1 - fx) * v10 + fx * v11))
 
 
 @functools.cache

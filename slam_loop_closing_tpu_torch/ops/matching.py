@@ -10,7 +10,10 @@ when ``d1 < max(scale * min d1, 30)``. :func:`nn_matches_2xmin` keeps the
 matches themselves (nearest-neighbour kernel D); :func:`banded_pair_counts`
 counts them for every frame pair ``t <= q - min_gap`` (band-count kernel C)
 and :func:`block_pair_counts` for every pair of two frame blocks (kernel C's
-frame-pair entry point on the card). :func:`motion_support` (kernel E) is
+frame-pair entry point on the card). :func:`good_count_pair`,
+:func:`all_pairs_good_counts` and :func:`dense_pair_counts_chunked` count
+them for explicit pair lists through the d1-only nearest-neighbour kernel I,
+with the count rule in torch. :func:`motion_support` (kernel E) is
 the support count behind :func:`prosac_quality`. :func:`ratio_matches_hamming`
 keeps a query's nearest target when ``d1 < ratio * d2`` (the top-2 kernel F
 on the card, over a list of frame pairs); :func:`ratio_matches_l2` is the
@@ -117,13 +120,14 @@ def band_tiles(num_blocks: int, block: int,
 
 
 def _pad_frames(signed: torch.Tensor, valid: torch.Tensor, block: int):
-    """Frames padded to a multiple of ``block`` with invalid all-zero rows,
-    as packed words: ([Fp, N, 8] int32, [Fp, N] bool)."""
-    f, n, d = signed.shape
-    pad = (-f) % block
+    """Frames ``[..., F, N, 256]`` padded along the frame axis to a multiple
+    of ``block`` with invalid all-zero rows, as packed words:
+    ([..., Fp, N, 8] int32, [..., Fp, N] bool)."""
+    pad = (-signed.shape[-3]) % block
     if pad:
-        signed = torch.cat([signed, signed.new_zeros((pad, n, d))])
-        valid = torch.cat([valid, valid.new_zeros((pad, n))])
+        lead, (n, d) = signed.shape[:-3], signed.shape[-2:]
+        signed = torch.cat([signed, signed.new_zeros((*lead, pad, n, d))], -3)
+        valid = torch.cat([valid, valid.new_zeros((*lead, pad, n))], -2)
     return desc_ops.signed_to_packed(signed), valid
 
 
@@ -133,29 +137,64 @@ def _band_mask(f: int, min_gap: int, device) -> torch.Tensor:
     return t <= q - min_gap
 
 
+def video_band_tiles(signed: torch.Tensor, valid: torch.Tensor, min_gap: int,
+                     block: int = 16):
+    """The band-count kernel's arguments for ``V`` sequences (``signed``
+    [V, F, N, 256], ``valid`` [V, F, N]): every sequence padded to ``nb``
+    whole blocks of ``block`` frames, so no ``block x block`` frame tile
+    straddles two sequences, as ONE flat store, and the tiles that intersect
+    the band ``target <= query - min_gap`` of every sequence, sequence-major.
+    Returns (packed [V*nb*block, N, 8] int32, valid [V*nb*block, N], qidx
+    [V*T], tidx [V*T], qb [T], tb [T]): ``qidx``/``tidx`` index blocks of
+    the flat store, ``qb``/``tb`` the same T tiles inside one sequence."""
+    v = signed.shape[0]
+    dev = signed.device
+    packed, vp = _pad_frames(signed, valid, block)
+    nb = packed.shape[1] // block
+    qb, tb = torch.tensor(band_tiles(nb, block, min_gap), dtype=torch.int32,
+                          device=dev).reshape(-1, 2).T
+    # sequence s's blocks are s * nb .. s * nb + nb - 1 of the flat store
+    first = (torch.arange(v, dtype=torch.int32, device=dev) * nb)[:, None]
+    return (packed.reshape(v * nb * block, *packed.shape[2:]),
+            vp.reshape(v * nb * block, -1), (first + qb).reshape(-1),
+            (first + tb).reshape(-1), qb, tb)
+
+
+def banded_pair_counts_videos(signed: torch.Tensor, valid: torch.Tensor,
+                              min_gap: int, scale: float = 2.0,
+                              block: int = 16) -> torch.Tensor:
+    """[V, F, F] int32 good-match counts of ``V`` sequences
+    (``signed`` [V, F, N, 256], ``valid`` [V, F, N]), each restricted to its
+    loop band ``target <= query - min_gap`` (everything else 0): the tiles
+    of :func:`video_band_tiles` through ONE launch of the band-count
+    kernel."""
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels
+
+    v, f = signed.shape[:2]
+    dev = signed.device
+    packed, vp, qidx, tidx, qb, tb = video_band_tiles(signed, valid, min_gap,
+                                                      block)
+    if qidx.numel() == 0:
+        return torch.zeros((v, f, f), dtype=torch.int32, device=dev)
+    tiles = cuda_kernels.band_count_tiles(packed, vp, qidx, tidx, block, scale)
+    nb = packed.shape[0] // (v * block)
+    full = torch.zeros((v, nb, nb, block, block), dtype=torch.int32,
+                       device=dev)
+    full[:, qb.long(), tb.long()] = tiles.reshape(v, qb.shape[0], block, block)
+    counts = full.permute(0, 1, 3, 2, 4).reshape(
+        v, nb * block, nb * block)[:, :f, :f]
+    return torch.where(_band_mask(f, min_gap, dev), counts, 0)
+
+
 def banded_pair_counts(signed: torch.Tensor, valid: torch.Tensor, min_gap: int,
                        scale: float = 2.0, block: int = 16) -> torch.Tensor:
     """[F, F] int32 good-match counts restricted to the loop band
     ``target <= query - min_gap`` (everything else 0), computed over the
     ``block x block`` frame tiles that intersect the band by one launch of
-    the band-count kernel."""
-    from slam_loop_closing_tpu_torch.ops import cuda_kernels
-
-    f = signed.shape[0]
-    packed, vp = _pad_frames(signed, valid, block)
-    nb = packed.shape[0] // block
-    pairs = band_tiles(nb, block, min_gap)
-    if not pairs:
-        return torch.zeros((f, f), dtype=torch.int32, device=signed.device)
-    qidx, tidx = torch.tensor(pairs, dtype=torch.int32,
-                              device=signed.device).T
-    tiles = cuda_kernels.band_count_tiles(packed, vp, qidx, tidx, block,
-                                          scale)
-    full = torch.zeros((nb, nb, block, block), dtype=torch.int32,
-                       device=signed.device)
-    full[qidx.long(), tidx.long()] = tiles
-    counts = full.permute(0, 2, 1, 3).reshape(nb * block, nb * block)[:f, :f]
-    return torch.where(_band_mask(f, min_gap, signed.device), counts, 0)
+    the band-count kernel: :func:`banded_pair_counts_videos` of one
+    sequence."""
+    return banded_pair_counts_videos(signed[None], valid[None], min_gap,
+                                     scale, block)[0]
 
 
 def banded_pair_counts_chunked(signed: torch.Tensor, valid: torch.Tensor,
@@ -168,6 +207,72 @@ def banded_pair_counts_chunked(signed: torch.Tensor, valid: torch.Tensor,
     card (the 4541-frame KITTI band is ~161k 8-frame tiles)."""
     return banded_pair_counts(signed, valid, min_gap, scale,
                               block).cpu().numpy()
+
+
+def _counts_from_d1(d1: torch.Tensor, valid_q: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """The Version-A count rule on nearest distances ``d1`` [..., N] int32 of
+    query rows with validity ``valid_q``: ``row_ok = valid_q & d1 < 2^29``,
+    ``thr = max(int(min d1 * scale), 30)`` (the product truncated to int32,
+    as the JAX package's per-pair path), count of ``row_ok & d1 < thr``."""
+    row_ok = valid_q & (d1 < BIG // 2)
+    # a frame pair with no usable row counts 0 whatever its threshold: its
+    # dmin is bounded so the product stays inside int32
+    dmin = torch.amin(torch.where(row_ok, d1, BITS), dim=-1, keepdim=True)
+    thr = torch.clamp_min((dmin * scale).to(torch.int32), 30)
+    return torch.sum(row_ok & (d1 < thr), dim=-1, dtype=torch.int32)
+
+
+def all_pairs_good_counts(packed: torch.Tensor, valid: torch.Tensor,
+                          pair_q: torch.Tensor, pair_t: torch.Tensor,
+                          scale: float = 2.0) -> torch.Tensor:
+    """[P] int32 good-match counts of an explicit list of frame pairs
+    (``pair_q[p]``, ``pair_t[p]``) of the store ``packed`` [F, N, 8] int32
+    with validity ``valid`` [F, N] (pad the lists with 0: callers mask). One
+    launch of the d1-only nearest-neighbour kernel
+    (:func:`.cuda_kernels.hamming_d1_pairs`, its plain version on the CPU)
+    over the whole list, on the store in place, then the count rule batched
+    over pairs. The JAX package takes the signed layout and maps over chunks
+    of pairs to bound its transient memory; the distances are the same."""
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels
+
+    d1 = cuda_kernels.hamming_d1_pairs(packed, packed, valid, pair_q, pair_t)
+    return _counts_from_d1(d1, valid.index_select(0, pair_q.long()), scale)
+
+
+def good_count_pair(packed_q: torch.Tensor, valid_q: torch.Tensor,
+                    packed_t: torch.Tensor, valid_t: torch.Tensor,
+                    scale: float = 2.0) -> torch.Tensor:
+    """Good-match count of one frame pair, packed ``[M, 8]`` / ``[N, 8]``
+    int32 words: the d1-only kernel (:func:`.cuda_kernels.hamming_nn_d1`)
+    and the count rule. Equal to ``nn_matches_2xmin(...).count``."""
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels
+
+    d1 = cuda_kernels.hamming_nn_d1(packed_q, packed_t, valid_t)
+    return _counts_from_d1(d1, valid_q, scale)
+
+
+def dense_pair_counts_chunked(signed: torch.Tensor, valid: torch.Tensor,
+                              scale: float = 2.0, min_gap: int = 1,
+                              pairs_per_call: int = 8192) -> np.ndarray:
+    """Sequence-scale DENSE all-pairs good-match counts (a 500-frame
+    ORB-4000 dense similarity matrix): every ordered pair
+    ``t <= q - min_gap`` through :func:`all_pairs_good_counts`,
+    ``pairs_per_call`` pairs per kernel launch (which bounds the [P, N]
+    distance table). The pair lists are built and the counts scattered on
+    the device; the [F, F] int32 matrix (other entries 0) comes back as host
+    numpy in one copy at the end. The same band through the tile kernel is
+    :func:`banded_pair_counts_chunked`; the two agree wherever the float and
+    the truncated threshold do (any integer ``scale``)."""
+    f = signed.shape[0]
+    dev = signed.device
+    packed = desc_ops.signed_to_packed(signed)
+    pq, pt = torch.tril_indices(f, f, offset=-min_gap, device=dev)
+    out = torch.zeros((f, f), dtype=torch.int32, device=dev)
+    for s in range(0, pq.shape[0], pairs_per_call):
+        q, t = pq[s:s + pairs_per_call], pt[s:s + pairs_per_call]
+        out[q, t] = all_pairs_good_counts(packed, valid, q, t, scale)
+    return out.cpu().numpy()
 
 
 def similarity(counts: torch.Tensor, nq: torch.Tensor,

@@ -1,2 +1,3 @@
-"""Host-side utilities: kernel build/load, synthetic video, loop-closure
-writers, stage timing, and conversion of the JAX package's arrays."""
+"""Host-side utilities: kernel build/load, synthetic video, frame IO and
+report writers, the KITTI adapter, stage timing and traces, and conversion of
+the JAX package's arrays."""

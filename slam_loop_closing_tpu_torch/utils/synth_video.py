@@ -1,13 +1,17 @@
 """Synthetic closed-loop video: a camera orbiting inside a textured
 cylinder, ray-cast to grayscale frames with numpy.
 
-A copy of :func:`slam_loop_closing_tpu.utils.synth_video.orbit_sequence` and
-the render helpers it uses (the tests hold the frames equal). The orbit
-spans a full turn, so the final frames see the first frames' wall again: a
-correct loop detector MUST join them.
+A copy of :func:`slam_loop_closing_tpu.utils.synth_video.orbit_sequence`,
+the render helpers it uses and ``write_frames`` (the tests hold the frames
+equal). The orbit spans a full turn, so the final frames see the first
+frames' wall again: a correct loop detector MUST join them.
+:func:`render_chessboard` and :func:`chessboard_views` rasterize the
+calibration tool's input: views of a chessboard plane under a known camera.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
@@ -103,3 +107,62 @@ def orbit_sequence(num_frames: int = 100, h: int = 240, w: int = 320,
     thetas = span * np.arange(num_frames) / num_frames
     return render_cylinder_trajectory(thetas, np.zeros(num_frames), h, w,
                                       num_points, radius, seed)
+
+
+def write_frames(frames: np.ndarray, out_dir: str | Path) -> Path:
+    """Write frames as ``frame_%04d.png`` (the reference's naming,
+    extract_images_from_mov.cpp:47)."""
+    from slam_loop_closing_tpu_torch.utils.io import _write_png
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    for i, f in enumerate(frames):
+        _write_png(out / f"frame_{i:04d}.png",
+                   (np.clip(f, 0, 1) * 255).astype(np.uint8))
+    return out
+
+
+def render_chessboard(K, R, t, rows, cols, square, h, w,
+                      ss: int = 2) -> np.ndarray:
+    """Rasterize a chessboard plane (z=0 world, ``rows`` x ``cols`` squares
+    of side ``square``, gray outside) under a pinhole camera by mapping
+    every pixel back through the plane homography. ``ss``: supersampling
+    factor for soft edges. [h, w] float32 in [0, 1]."""
+    Hinv = np.linalg.inv(K @ np.stack([R[:, 0], R[:, 1], t], axis=1))
+    ys, xs = np.mgrid[0:h * ss, 0:w * ss] / ss
+    world = Hinv @ np.stack([xs.ravel(), ys.ravel(), np.ones(xs.size)])
+    X = world[0] / world[2]
+    Y = world[1] / world[2]
+    ix = np.floor(X / square).astype(int)
+    iy = np.floor(Y / square).astype(int)
+    img = np.where((ix + iy) % 2 == 0, 1.0, 0.0)
+    inside = ((X > 0) & (X < cols * square)
+              & (Y > 0) & (Y < rows * square))
+    img = np.where(inside, img, 0.5)
+    img = img.reshape(h * ss, w * ss).astype(np.float32)
+    return img.reshape(h, ss, w, ss).mean((1, 3))
+
+
+def chessboard_views(num_views: int = 6, h: int = 240, w: int = 320,
+                     focal: float = 300.0, rows: int = 6, cols: int = 9,
+                     square: float = 0.03, seed: int = 2):
+    """``num_views`` mildly tilted views of a board with ``rows`` x ``cols``
+    inner corners, centered 0.55-0.75 units in front of a camera with
+    ``K = [[focal, 0, w/2], [0, focal, h/2], [0, 0, 1]]``: (K, images)."""
+    K = np.array([[focal, 0, w / 2.0], [0, focal, h / 2.0], [0, 0, 1.0]])
+    rng = np.random.default_rng(seed)
+    images = []
+    for _ in range(num_views):
+        rv = rng.uniform(-0.25, 0.25, 3) * np.array([1, 1, 0.5])
+        ang = np.linalg.norm(rv)
+        axis = rv / max(ang, 1e-9)
+        Kx = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                       [-axis[1], axis[0], 0]])
+        R = np.eye(3) + np.sin(ang) * Kx + (1 - np.cos(ang)) * Kx @ Kx
+        center = np.array([cols * square / 2, rows * square / 2, 0.0])
+        C = center + R.T @ np.array([rng.uniform(-0.02, 0.02),
+                                     rng.uniform(-0.02, 0.02),
+                                     -rng.uniform(0.55, 0.75)])
+        images.append(render_chessboard(K, R, -R @ C, rows + 1, cols + 1,
+                                        square, h, w))
+    return K, images

@@ -8,7 +8,8 @@ device (the CPU test run); on a machine with a card and nvcc:
 (``--noconftest``: the tests' conftest configures JAX, which this file does
 not use.) Integer outputs, the FAST score and the blur are bitwise equal;
 so are the nearest-neighbour (D), top-2 (F), motion-support (E) and
-frame-pair count (K5) kernels, the SIFT octave kernel (H) in both modes,
+frame-pair count (K5) and d1-only nearest-neighbour (I) kernels, the SIFT
+octave kernel (H) in both modes,
 and the squared-L2 top-2 kernel (G) on integer-valued descriptors (on real
 ones its dot products sum in another order than cuBLAS's: distances within
 1e-5).
@@ -261,6 +262,92 @@ def test_hamming_knn2_kernel_bitwise(dev, m, n, pairs):
     assert (d1[0, :3][ok0] == 0).all() and (d2[0, :3][ok0] == 0).all()
     assert (idx[0, :3][ok0] == torch.arange(3)[ok0]).all()
     assert (d1[-1] == 2 ** 30).all() and (d2[-1] == 2 ** 30).all()
+
+
+@pytest.mark.parametrize("m,n,pairs", [(70, 90, 5), (4000, 4000, 40),
+                                       (2100, 1100, 3), (5, 8192, 1)])
+def test_hamming_d1_kernel_bitwise(dev, m, n, pairs):
+    """A query store and a target store indexed in place by a pair list:
+    queries equal to targets, invalid target rows, an all-invalid target
+    frame, query rows crossing 2048-row slabs, targets crossing 512-row
+    chunks, and (few pairs) the target rows split over blocks."""
+    rng = np.random.default_rng(m + n + pairs)
+    sq = (rng.integers(0, 2, (6, m, 256)) * 2 - 1).astype(np.int8)
+    st = (rng.integers(0, 2, (7, n, 256)) * 2 - 1).astype(np.int8)
+    sq[:, :3] = st[0, :3]
+    vt = torch.from_numpy(rng.random((7, n)) > 0.2).to(dev)
+    vt[:, :3] = True
+    vt[4] = False
+    pq = desc_ops.signed_to_packed(torch.from_numpy(sq).to(dev))
+    pt = desc_ops.signed_to_packed(torch.from_numpy(st).to(dev))
+    qidx = torch.from_numpy(rng.integers(0, 6, pairs).astype(np.int32)).to(dev)
+    tidx = torch.from_numpy(rng.integers(0, 7, pairs).astype(np.int32)).to(dev)
+    tidx[0] = 0
+    if pairs > 1:
+        tidx[-1] = 4
+    ref = ck.hamming_d1_pairs_plain(pq, pt, vt, qidx, tidx)
+    # int64 pair lists as strided views of one [P, 2] tensor and strided
+    # validity: converted copies must outlive the launch (F4)
+    q64, t64 = torch.stack([qidx, tidx], 1).long().T
+    before = ck.LAUNCHES["hamming_d1"]
+    for valid_t, qi, ti in ((vt, qidx, tidx), (_strided(vt), q64, t64)):
+        assert torch.equal(ck.hamming_d1_pairs(pq, pt, valid_t, qi, ti), ref)
+    assert ck.LAUNCHES["hamming_d1"] == before + 2
+    assert (ref[0, :3] == 0).all()
+    if pairs > 1:
+        assert (ref[-1] == 2 ** 30).all()
+    one = ck.hamming_nn_d1(pq[1], pt[2], vt[2])
+    assert torch.equal(one, ck.hamming_nn_d1_plain(pq[1], pt[2], vt[2]))
+    assert torch.equal(one, ck.hamming_nn(pq[1], torch.ones(m, dtype=torch.bool,
+                                                            device=dev),
+                                          pt[2], vt[2])[0])
+
+
+def test_dense_pair_counts_on_card_equal_cpu_and_tiles(dev):
+    """The dense scan of a small sequence on the card: kernel I's route
+    equals the CPU's and kernel C's tile route."""
+    rng = np.random.default_rng(9)
+    f, n = 21, 300
+    signed = (rng.integers(0, 2, (f, n, 256)) * 2 - 1).astype(np.int8)
+    valid = rng.random((f, n)) > 0.1
+    valid[4] = False
+    signed[20, :60] = signed[2, :60]
+    valid[20, :60] = valid[2, :60] = True
+    signed = torch.from_numpy(np.where(valid[..., None], signed, 0)
+                              .astype(np.int8))
+    valid = torch.from_numpy(valid)
+    before = ck.LAUNCHES["hamming_d1"]
+    got = matching.dense_pair_counts_chunked(signed.to(dev), valid.to(dev),
+                                             min_gap=1, pairs_per_call=64)
+    assert ck.LAUNCHES["hamming_d1"] == before + -(-(f * (f - 1) // 2) // 64)
+    ref = matching.dense_pair_counts_chunked(signed, valid, min_gap=1,
+                                             pairs_per_call=64)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, matching.banded_pair_counts_chunked(
+        signed.to(dev), valid.to(dev), 1))
+    assert got[20, 2] >= 60
+    one = matching.good_count_pair(
+        desc_ops.signed_to_packed(signed[20]).to(dev), valid[20].to(dev),
+        desc_ops.signed_to_packed(signed[2]).to(dev), valid[2].to(dev))
+    assert int(one) == got[20, 2]
+
+
+def test_process_videos_batched_on_card_equals_per_video(dev):
+    """Three small videos through one front-end batch and one launch of the
+    band-count kernel: each video's loops equal process_video's on it."""
+    cfg = dataclasses.replace(
+        PipelineConfig(), orb=OrbConfig(num_features=300, num_levels=2),
+        loop=LoopConfig(loop_threshold=0.15, min_loop_gap=12, frame_skip=1))
+    videos = np.stack([orbit_sequence(num_frames=20, h=144, w=192,
+                                      num_points=250, seed=s)
+                       for s in (3, 4, 5)])
+    before = ck.LAUNCHES["band_count_tiles"]
+    got = LoopClosingSystem.process_videos_batched(videos, cfg, device=dev)
+    assert ck.LAUNCHES["band_count_tiles"] == before + 1
+    for v in range(3):
+        ref = LoopClosingSystem(cfg, max_frames=20, device=dev).process_video(
+            videos[v])
+        assert ref and got[v] == ref
 
 
 def test_motion_support_kernel_batched_bitwise(dev):

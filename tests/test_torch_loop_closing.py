@@ -1,7 +1,8 @@
 """The port's batched Version-A slice against the JAX package on the CPU:
 ``process_video`` on the 32-frame orbit fixture of test_loop_closing.py
-(loop set, counts, similarities), the loop report, the config and synthetic
-video copies, the conversion of the JAX package's arrays, and the rule that
+(loop set, counts, similarities), ``process_videos_batched`` on three
+small videos, the loop report and its PNGs, the config and synthetic video
+copies, the conversion of the JAX package's arrays, and the rule that
 the port loads no JAX."""
 
 import dataclasses
@@ -106,6 +107,60 @@ def test_save_results_same_report(slice_runs, tmp_path):
     assert len(tsys.get_loop_closures()) == len(jsys.get_loop_closures())
 
 
+def test_process_videos_batched_equals_jax_and_per_video():
+    """Three 20-frame videos (frames not a multiple of the tile block):
+    loop ids and counts exact, similarity to 1e-6, against the JAX package
+    and against the port's process_video on each video alone."""
+    cfg = dataclasses.replace(
+        small_config(8),
+        loop=jconfig.LoopConfig(loop_threshold=0.15, min_loop_gap=12,
+                                frame_skip=1))
+    tcfg = tconfig.PipelineConfig.from_json(cfg.to_json())
+    videos = np.stack([jsynth.orbit_sequence(num_frames=20, h=144, w=192,
+                                             num_points=250, seed=s)
+                       for s in (3, 4, 5)])
+    ref = JaxLoopClosingSystem.process_videos_batched(videos, cfg)
+    got = LoopClosingSystem.process_videos_batched(videos, tcfg, device="cpu")
+    assert len(got) == 3 and all(ref)
+    for v in range(3):
+        assert [t[:3] for t in as_tuples(got[v])] == \
+            [t[:3] for t in as_tuples(ref[v])]
+        np.testing.assert_allclose([c.similarity_score for c in got[v]],
+                                   [c.similarity_score for c in ref[v]],
+                                   rtol=0, atol=1e-6)
+        alone = LoopClosingSystem(tcfg, max_frames=20, device="cpu"
+                                  ).process_video(videos[v])
+        assert as_tuples(got[v]) == as_tuples(alone)
+    # at or below the gap there is nothing to scan
+    assert LoopClosingSystem.process_videos_batched(
+        videos[:, :12], tcfg, device="cpu") == [[], [], []]
+
+
+def test_save_results_same_png_names(slice_runs, tmp_path):
+    """loop_X_Y.png per loop and matches_X_Y.png every viz_every-th frame:
+    the file names of the JAX package, each a decodable RGB image two
+    frames wide; match_viz=False leaves the matches_ files out."""
+    from PIL import Image
+
+    jsys, tsys, _, _ = slice_runs[8]
+    jsys.save_results(tmp_path / "jax")
+    tsys.save_results(tmp_path / "torch")
+    names = sorted(p.name for p in (tmp_path / "torch").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert any(n.startswith("loop_") for n in names)
+    assert any(n.startswith("matches_") for n in names)
+    for n in names:
+        if n.endswith(".png"):
+            img = Image.open(tmp_path / "torch" / n)
+            assert img.mode == "RGB" and img.size == (2 * 192, 144)
+    ref = np.asarray(Image.open(tmp_path / "jax" / names[1]), np.int16)
+    got = np.asarray(Image.open(tmp_path / "torch" / names[1]), np.int16)
+    assert np.mean(np.abs(got - ref) > 0) < 0.01
+    tsys.save_results(tmp_path / "noviz", match_viz=False)
+    assert sorted(p.name for p in (tmp_path / "noviz").iterdir()) == \
+        [n for n in names if not n.startswith("matches_")]
+
+
 def test_config_json_and_orbit_copies():
     assert tconfig.PipelineConfig().to_json() == \
         jconfig.PipelineConfig().to_json()
@@ -156,6 +211,26 @@ def test_stage_timer_sums_stages():
     assert timer.frames_per_sec(10) == 10 / sum(timer.stages.values())
 
 
+def test_stage_timer_stage_rate_and_summary_equal_jax(tmp_path):
+    """One stage's rate, the summary block in the JAX package's words, and
+    a trace file around a block."""
+    from slam_loop_closing_tpu.utils import profiling as jprof
+    from slam_loop_closing_tpu_torch.utils import profiling as tprof
+
+    timer, ref = StageTimer("cpu"), jprof.StageTimer()
+    timer.stages = {"loop_detection": 2.0, "save_results": 0.5}
+    ref.stages = dict(timer.stages)
+    assert timer.frames_per_sec(10, "loop_detection") == 5.0
+    assert timer.frames_per_sec(10, "missing") == float("inf")
+    assert timer.frames_per_sec(10) == ref.frames_per_sec(10) == 4.0
+    assert timer.summary() == ref.summary()
+    with tprof.trace(None):
+        pass
+    with tprof.trace(tmp_path / "t"):
+        torch.ones(4).sum()
+    assert (tmp_path / "t" / "trace.json").stat().st_size > 0
+
+
 def test_port_imports_no_jax():
     """Importing the slice loads no jax module (the test process itself
     has jax loaded, hence the subprocess)."""
@@ -174,7 +249,11 @@ def test_port_imports_no_jax():
             "slam_loop_closing_tpu_torch.ops.triangulation, "
             "slam_loop_closing_tpu_torch.utils.checkpoint, "
             "slam_loop_closing_tpu_torch.utils.io, "
-            "slam_loop_closing_tpu_torch.utils.logging; "
+            "slam_loop_closing_tpu_torch.utils.logging, "
+            "slam_loop_closing_tpu_torch.utils.kitti, "
+            "slam_loop_closing_tpu_torch.utils.synth_video, "
+            "slam_loop_closing_tpu_torch.models.calibration, "
+            "slam_loop_closing_tpu_torch.cli; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('slam_loop_closing_tpu.')]; "
             "assert not bad, bad")
