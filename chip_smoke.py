@@ -83,7 +83,8 @@ each printed with its result and seconds on its own line:
     within 10% (R11's terms; the front-end is not bitwise across devices:
     cuBLAS and MKL sum the float32 octave resize in other orders, and
     CUDA's atan2 and exp differ from the CPU's in the last bit);
-13. kernel I: the d1-only Hamming nearest-neighbour kernel against its
+13. kernel I: the d1-only Hamming nearest-neighbour kernel (the tensor
+    cores' b1 and-popc product, as kernels C and K5) against its
     plain version, bitwise, at 8192 x 8192 rows with every target valid
     (bench_hamming.py's shape; the target rows split over blocks) and at
     2000 x 2000 with a fifth of the targets invalid and with none valid;
@@ -103,7 +104,9 @@ each printed with its result and seconds on its own line:
     ``dense_pair_counts_chunked(min_gap=1)`` warm and timed — one launch
     of kernel I per chunk of 8,192 pairs, counted — and the Version-A rule
     at gap 30 / 0.15 / 50 on the matrix (loops found, the closing loop
-    among them); on the same descriptors
+    among them); the peak device memory of each stage (the resident frames,
+    one front-end batch step by step, the store, one dense chunk); on the
+    same descriptors
     ``banded_pair_counts_chunked(min_gap=1)`` (kernel C's tiles), whose
     [F, F] matrix must equal the pair route's everywhere;
 15. slice multi-video: ``process_videos_batched`` on 6 videos x 48 frames x
@@ -130,9 +133,13 @@ just after. Any failure raises (exit code 1). The line before the last is
 the kernels' JSON record: each kernel's launches on the main paths, its
 error against the plain version, its CUDA-event time and the plain
 version's, and its bound (the larger of the bytes it must move over 3.35
-TB/s and the operations it does over the H100's peak for their type: int8
-tensor-core for the Hamming kernels, whose +-1 form is an int8 product, and
-float32 SIMT otherwise), all from this run's inputs; ``library_ms`` is null
+TB/s and the operations it does over the H100's peak for their type: the
+b1 tensor-core rate for kernels C, K5 and I (2 x 256 one-bit operations a
+row pair; NVIDIA publishes no b1 rate for this card, so the peak is the
+instruction rate of ``mma.sync.m16n8k256.b1`` that
+``csrc/probes/probe_hamming_forms.py`` measured), int8 tensor-core for
+kernels D and F, whose +-1 form is an int8 product, and float32 SIMT
+otherwise), all from this run's inputs; ``library_ms`` is null
 (no single PyTorch call computes the kernel's function) except for kernel
 I, where it is the matmul-and-``amax`` form at 8192 x 8192. The last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX; run
@@ -216,10 +223,17 @@ MV_VIDEOS, MV_FRAMES, MV_H, MV_W = 6, 48, 540, 960   # bench_multivideo.py
 MV_FEATURES = 1000
 MV_KERNELS = ("fast_score_nms_blur", "extract_patches", "band_count_tiles")
 CLI_FRAMES, CLI_H, CLI_W = 32, 144, 192   # the tests' orbit fixture
+# the multi-loop fixture of tests/test_torch_loop_closing.py
+ML_FRAMES, ML_H, ML_W, ML_POINTS, ML_SEED = 96, 240, 320, 800, 3
+ML_FEATURES, ML_GAP, ML_DY = 500, 16, 16.0
 RENDER_WORKERS = 8
 # bounds: the H100 SXM's published peaks
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12}
+# "b1": one-bit and-popc on the tensor cores. No published rate: 10.1e15 is
+# the instruction rate of mma.sync.m16n8k256.b1 alone, 8 and 16 warps an SM,
+# measured by csrc/probes/probe_hamming_forms.py (NVIDIA H100 80GB HBM3,
+# 700 W): 8.0x the rate it measures for mma.sync.m16n8k32.s8.
+PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12, "b1": 10.1e15}
 FAST_OPS_PER_PX = 325   # kernel A: 16 arcs x 16 min/max, NMS, 2 x 13 blur
 GATE_OPS_PER_PX = 110   # kernel H's gates per response pixel: 27 DoG
                         # differences, 52 min/max, the edge test
@@ -408,12 +422,12 @@ def check_kernels(frames_dev, dev) -> dict:
     ms = cuda_ms(lambda: ck.band_count_tiles(packed, vt, qidx, tidx, block), 5)
     plain_ms = cuda_ms(
         lambda: ck.band_count_tiles_plain(packed, vt, qidx, tidx, block), 2)
-    # as the +-1 int8 product: 2 x 256 operations per valid row pair
+    # the b1 and-popc product: 2 x 256 operations per valid row pair
     nv = valid.sum(1).reshape(-1, block).sum(1)
     records["band_count_tiles"] = dict(
         max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
         **bound(packed.numel() * 4 + vt.numel() + got.numel() * 4,
-                512 * pair_work(nv, nv, qidx.cpu(), tidx.cpu()), "int8"))
+                512 * pair_work(nv, nv, qidx.cpu(), tidx.cpu()), "b1"))
     phase("kernel C band_count_tiles", t0,
           f"{len(pairs)} tiles of {block}x{block} frames x {NUM_FEATURES} "
           f"descriptors: bitwise (max count {int(got.max())}); kernel "
@@ -459,7 +473,7 @@ def check_live_kernels(dev) -> dict:
     records["pair_counts"] = dict(
         max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
         **bound(packed.numel() * 4 + vt.numel() + got.numel() * 4,
-                512 * pair_work(nv, nv, qidx.cpu(), tidx.cpu()), "int8"))
+                512 * pair_work(nv, nv, qidx.cpu(), tidx.cpu()), "b1"))
     phase("kernel K5 pair_counts", t0,
           f"1 x {MAX_FRAMES} frames x {n} descriptors: bitwise (revisit "
           f"count {int(got[3])}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
@@ -1574,7 +1588,7 @@ def check_d1_kernel(dev) -> dict:
     lib = ((256 - library().to(torch.float32)) * 0.5).to(torch.int32)
     check_bitwise("matmul-and-amax form", [lib], [ref])
     library_ms = cuda_ms(library, 20)
-    b = bound(2 * n * 32 + n + n * 4, 512.0 * n * n, "int8")
+    b = bound(2 * n * 32 + n + n * 4, 512.0 * n * n, "b1")
     bench = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
                  bound_by=b["bound_by"], library_ms=library_ms,
                  g_row_pairs_per_s=n * n / ms / 1e6)
@@ -1664,7 +1678,7 @@ def check_d1_pairs(packed, valid, bench: dict, dev) -> dict:
     # every query row of a pair against the pair's valid target rows
     work = pair_work(np.full(f, n), nv, pq.cpu(), pt.cpu())
     b = bound(packed.numel() * 4 + valid.numel() + 8 * p_cnt + got.numel() * 4,
-              512.0 * work, "int8")
+              512.0 * work, "b1")
     phase("kernel I hamming_d1_pairs", t0,
           f"{p_cnt} pairs of the {f} x {n}-row store in place: bitwise "
           f"against the plain version on all pairs, counts equal "
@@ -1680,6 +1694,83 @@ def check_d1_pairs(packed, valid, bench: dict, dev) -> dict:
                 library_at=f"{D1_BENCH_ROWS} x {D1_BENCH_ROWS} rows, one pair",
                 shape=f"{p_cnt} pairs x {n} x {n} rows",
                 single_pair_8192=bench)
+
+
+def config2_memory(frames_dev, cfg, pattern, signed, valid, dev) -> None:
+    """Peak device memory of config 2 by stage, each as the rise over what
+    was allocated when the stage began: one front-end batch step by step
+    (the steps of ``orb.detect_and_describe_batch``, every intermediate kept
+    alive as it keeps them) and as the one call, the store, and one dense
+    chunk of pairs."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
+    from slam_loop_closing_tpu_torch.ops import fast as fast_ops
+    from slam_loop_closing_tpu_torch.ops import image as image_ops
+    from slam_loop_closing_tpu_torch.ops import matching, orb
+
+    t0 = time.perf_counter()
+    gb = 1e9
+
+    def staged(fn):
+        """(result, peak rise in GB, rise kept after the stage in GB)"""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, (torch.cuda.max_memory_allocated() - base) / gb,
+                (torch.cuda.memory_allocated() - base) / gb)
+
+    resident = torch.cuda.memory_allocated() / gb
+    steps = []
+    imgs, pk, kept = staged(
+        lambda: image_ops.ship_frames(frames_dev[:C2_BATCH], dev))
+    steps.append(f"float32 frames +{pk:.2f} (kept {kept:.2f})")
+    levels, pk, kept = staged(
+        lambda: image_ops.pyramid(imgs, cfg.num_levels, cfg.scale_factor))
+    steps.append(f"pyramid +{pk:.2f} (kept {kept:.2f})")
+    budgets = orb._level_budgets(cfg.num_features, cfg.num_levels,
+                                 cfg.scale_factor)
+    dets, pk, kept = staged(lambda: [fast_ops.detect_with_blur(
+        lv, threshold=cfg.fast_threshold / 255.0, num_features=budget,
+        nms_radius=cfg.nms_radius, border=cfg.border,
+        grid_cell=cfg.grid_cell) for lv, budget in zip(levels, budgets)])
+    steps.append(f"kernel A and top-K on every level +{pk:.2f} (kept "
+                 f"{kept:.2f}: the blurred levels)")
+    patches, pk, kept = staged(lambda: torch.cat(
+        [orb.extract_patches_fast(d[3], d[0]) for d in dets], dim=1))
+    steps.append(f"kernel B's [{C2_BATCH}, {cfg.num_features}, 32, 32] "
+                 f"patches +{pk:.2f} (kept {kept:.2f})")
+    val = torch.cat([d[2] for d in dets], dim=1).reshape(-1)
+    flat = patches.reshape(-1, orb.PATCH, orb.PATCH)
+
+    def describe():
+        ang = orb.orientation_from_patches(
+            flat, val, orb._moment_weights_on(torch.device(dev)))
+        return orb.brief_from_patches_binned(flat, ang, val, pattern)
+
+    _, pk, kept = staged(describe)
+    steps.append(f"orientation and the 30 BRIEF products +{pk:.2f} (kept "
+                 f"{kept:.2f})")
+    del imgs, levels, dets, patches, flat, val
+    _, batch_pk, _ = staged(lambda: orb.detect_and_describe_batch(
+        image_ops.ship_frames(frames_dev[:C2_BATCH], dev), cfg, pattern))
+    packed, pk_store, kept_store = staged(
+        lambda: desc_ops.signed_to_packed(signed))
+    f = valid.shape[0]
+    pq, pt = torch.tril_indices(f, f, offset=-1, device=dev)
+    _, pk_chunk, _ = staged(lambda: matching.all_pairs_good_counts(
+        packed, valid, pq[:C2_PAIRS_PER_CALL], pt[:C2_PAIRS_PER_CALL]))
+    phase("config 2 memory by stage", t0,
+          f"GB, each stage's peak over its start: resident before "
+          f"{resident:.2f} (the uint8 frames {frames_dev.numel() / gb:.2f}, "
+          f"the signed store {signed.numel() / gb:.2f}); one front-end batch "
+          f"of {C2_BATCH} as one call +{batch_pk:.2f}, step by step: "
+          + "; ".join(steps) + f"; packing the store +{pk_store:.2f} (kept "
+          f"{kept_store:.2f}); one dense chunk of {C2_PAIRS_PER_CALL} pairs "
+          f"+{pk_chunk:.2f} (the [P, N] int32 distances "
+          f"{C2_PAIRS_PER_CALL * valid.shape[1] * 4 / gb:.2f})")
 
 
 def run_config2(frames_u8: np.ndarray, bench: dict, dev):
@@ -1767,7 +1858,6 @@ def run_config2(frames_u8: np.ndarray, bench: dict, dev):
     if not all(launches[k] for k in C2_KERNELS):
         raise AssertionError(f"a kernel of the path did not run: {launches}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    del frames_dev
 
     # the Version-A rule on the dense matrix, the gap applied at decision
     denom = np.maximum(np.minimum(nfeat[:, None], nfeat[None, :]), 1)
@@ -1793,6 +1883,9 @@ def run_config2(frames_u8: np.ndarray, bench: dict, dev):
           f"{int(loops.sum())} loops at gap {loop_cfg.min_loop_gap}, closing "
           f"loop found; peak device memory {peak_gb:.2f} GB; launches "
           f"{launches}")
+
+    config2_memory(frames_dev, cfg, pattern, signed, valid, dev)
+    del frames_dev
 
     # the same band through kernel C's tiles
     t0 = time.perf_counter()
@@ -1880,6 +1973,106 @@ def run_multivideo(videos_u8: np.ndarray, dev) -> dict:
           f"{[len(x) for x in loops]}, each equal to process_video alone; "
           f"warm run {t_run * 1e3:.1f} ms = {v * b / t_run:.1f} frames/s; "
           f"launches {launches}")
+    return launches
+
+
+def run_multi_loop(dev) -> dict:
+    """The multi-loop fixture through ``process_video`` on the CPU and on
+    the card, against its ground truth, and the tensor-core kernels on its
+    unsaturated store; returns the card run's launch counts."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.config import (LoopConfig, OrbConfig,
+                                                    PipelineConfig)
+    from slam_loop_closing_tpu_torch.models.loop_closing import \
+        LoopClosingSystem
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    from slam_loop_closing_tpu_torch.ops import matching
+    from slam_loop_closing_tpu_torch.utils.synth_video import (
+        ground_truth_loop_pairs, multi_loop_sequence)
+
+    t0 = time.perf_counter()
+    frames, thetas, ys = multi_loop_sequence(
+        num_frames=ML_FRAMES, h=ML_H, w=ML_W, num_points=ML_POINTS,
+        seed=ML_SEED, distractor_dy=ML_DY)
+    truth = set(zip(*(v.tolist() for v in np.nonzero(
+        ground_truth_loop_pairs(thetas, ys, ML_GAP)))))
+    dth = np.abs(thetas[:, None] - thetas[None, :])
+    dth = np.minimum(dth, 2 * np.pi - dth)
+    dy = np.abs(ys[:, None] - ys[None, :])
+    cfg = dataclasses.replace(
+        PipelineConfig(),
+        orb=OrbConfig(num_features=ML_FEATURES, num_levels=2),
+        loop=LoopConfig(loop_threshold=0.15, min_loop_gap=ML_GAP,
+                        frame_skip=1))
+    got, launches = {}, None
+    for d in ("cpu", dev):
+        system = LoopClosingSystem(cfg, max_frames=ML_FRAMES,
+                                   log=lambda _: None, device=d)
+        ck.reset_launch_counts()
+        system.process_video(frames)
+        launches = dict(ck.LAUNCHES)
+        got[d] = {(c.current_frame_id, c.matched_frame_id): c.num_matches
+                  for c in system.get_loop_closures()}
+    if not all(launches[k] for k in VIDEO_KERNELS):
+        raise AssertionError(f"a kernel of the path did not run: {launches}")
+    loops = set(got[dev])
+    if loops != set(got["cpu"]):
+        raise AssertionError(
+            f"multi-loop fixture: the loop sets differ at "
+            f"{sorted(loops ^ set(got['cpu']))[:10]}")
+    band = [(q, t) for q in range(ML_FRAMES) for t in range(q - ML_GAP + 1)]
+    non_loops = len(band) - len(loops)
+    if len(loops) < 100 or non_loops < 100:
+        raise AssertionError(f"the fixture does not discriminate: "
+                             f"{len(loops)} loops, {non_loops} non-loops")
+    if not truth or not truth <= loops:
+        raise AssertionError(f"true revisits missed: {sorted(truth - loops)}")
+    hard = [p for p in loops if dy[p] >= ML_DY - 2.0 and dth[p] < 0.2]
+    diff = max(abs(got["cpu"][k] - got[dev][k]) for k in loops)
+    phase("slice multi-loop process_video", t0,
+          f"{ML_FRAMES} x {ML_H}x{ML_W} ORB-{ML_FEATURES}, gap {ML_GAP}: CPU "
+          f"and card give the same {len(loops)} loops of {len(band)} band "
+          f"pairs ({non_loops} non-loops), max match-count difference "
+          f"{diff}; all {len(truth)} true revisit pairs are loops; the raw "
+          f"rule also joins {len(hard)} distractor pairs (geometric "
+          f"verification rejects those); launches {launches}")
+
+    # the kernels on this store: distances of every size, not only near 0
+    t0 = time.perf_counter()
+    packed = system.db.packed[:ML_FRAMES]
+    valid = system.db.valid[:ML_FRAMES]
+    check_bitwise("tensor-core tile product",
+                  [ck.hamming_tile_product(packed[0], packed[ML_FRAMES - 1])],
+                  [ck.hamming_tile_product_plain(packed[0],
+                                                 packed[ML_FRAMES - 1])])
+    block = 16
+    qidx, tidx = torch.tensor(
+        matching.band_tiles(ML_FRAMES // block, block, ML_GAP),
+        dtype=torch.int32, device=dev).T
+    tiles = ck.band_count_tiles(packed, valid, qidx, tidx, block)
+    check_bitwise("band_count_tiles on the multi-loop store", [tiles],
+                  [ck.band_count_tiles_plain(packed, valid, qidx, tidx,
+                                             block)])
+    pq, pt = torch.tensor(band, dtype=torch.int32, device=dev).T
+    d1 = ck.hamming_d1_pairs(packed, packed, valid, pq, pt)
+    check_bitwise("hamming_d1_pairs on the multi-loop store", [d1],
+                  [ck.hamming_d1_pairs_plain(packed, packed, valid, pq, pt)])
+    counts = ck.pair_counts(packed, valid, pq, pt)
+    check_bitwise("pair_counts on the multi-loop store", [counts],
+                  [ck.pair_counts_plain(packed, valid, pq, pt)])
+    check_bitwise("kernel I + count rule vs pair_counts, multi-loop store",
+                  [matching.all_pairs_good_counts(packed, valid, pq, pt)],
+                  [counts])
+    lo, hi = int(counts.min()), int(counts.max())
+    if not lo < 50 < 150 < hi:
+        raise AssertionError(f"the store saturates: counts {lo}-{hi}")
+    phase("kernels C, I, K5 on the multi-loop store", t0,
+          f"{ML_FRAMES} x {packed.shape[1]} rows: the raw [64, 64] product "
+          f"equals popc(q & t); {qidx.shape[0]} tiles of {block}x{block} "
+          f"frames, {len(band)} band pairs: bitwise; counts {lo}-{hi}, "
+          f"nearest distances {int(d1.min())}-"
+          f"{int(d1[d1 < 2 ** 30].max())}")
     return launches
 
 
@@ -2074,9 +2267,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     mv_launches = run_multivideo(np.stack(videos), dev)
     run_cli(cli_frames, dev)
+    ml_launches = run_multi_loop(dev)
 
     paths = (video_launches, stream_launches, sfm_launches, sift_launches,
-             c2_launches, mv_launches)
+             c2_launches, mv_launches, ml_launches)
     kernels = [dict(name=k, route="cuda",
                     source=f"slam_loop_closing_tpu_torch/csrc/{SOURCES[k]}",
                     replaces=REPLACES[k],

@@ -15,35 +15,23 @@
 // Target validity is explicit (the TPU's zero-row convention is not needed).
 //
 // Design: one block of 256 threads per (tile, query frame, target frame).
-// Descriptors are packed 8 x 32-bit words; each thread holds 8 query rows
-// in registers, the block stages 512 target rows (16 KB) at a time in shared
-// memory, and every staged row (two 16-byte broadcast loads) serves the 8
-// query rows: XOR + __popc, exact integer distances. An invalid target row
-// adds 512 to its distances, so it never wins a row minimum that can pass
-// d1 < 257. Per-row minima go to shared memory for the block's finalize.
+// The distances come from the tensor cores' b1 and-popc product on the packed
+// words (hamming_mma.cuh, nearest_valid_distance): the block walks the query
+// frame in slabs of 1,024 rows, each against all target rows, and the per-row
+// minima go to shared memory for the block's finalize. An invalid target row
+// reads d + 512, so it never wins a row minimum that can pass d1 < 257.
 //
-// Bound on the H100: integer issue rate. Every pair of rows costs 8 XOR, 8
-// POPC (quarter-rate on Hopper), 8 adds and a min; the band of 96 frames x
-// 2000 descriptors in 16-frame tiles is ~15 G row pairs. Later work: the
-// +-1 int8 form on the tensor cores (mma.sync / wgmma s8 with int32
-// accumulation, exact), which the TPU kernels used on its matrix unit.
+// Bound on the H100: the tensor cores' b1 rate (see hamming_mma.cuh); the
+// band of 96 frames x 2000 descriptors in 16-frame tiles is ~15 G row pairs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hamming_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 8;       // query rows per thread per pass
-constexpr int kChunk = 512;    // target rows staged per pass
-constexpr int kPenalty = 512;  // added to distances to invalid target rows
-
-__device__ __forceinline__ int ham(const uint4& qa, const uint4& qb,
-                                   const uint4& ta, const uint4& tb) {
-  return __popc(qa.x ^ ta.x) + __popc(qa.y ^ ta.y) + __popc(qa.z ^ ta.z) +
-         __popc(qa.w ^ ta.w) + __popc(qb.x ^ tb.x) + __popc(qb.y ^ tb.y) +
-         __popc(qb.z ^ tb.z) + __popc(qb.w ^ tb.w);
-}
+using hamming_mma::kThreads;
 
 template <typename T, typename Op>
 __device__ T block_reduce(T v, T* scratch, Op op) {
@@ -64,14 +52,13 @@ struct AddOp {
   __device__ int operator()(int a, int b) const { return a + b; }
 };
 
-// packed: [frames, n, 2] uint4 (8 words per row); valid: [frames, n] uint8
-__global__ void __launch_bounds__(kThreads)
-band_counts_kernel(const uint4* __restrict__ packed,
+// packed: [frames, n, 8] words; valid: [frames, n] uint8
+__global__ void __launch_bounds__(kThreads, hamming_mma::kMinBlocks)
+band_counts_kernel(const uint32_t* __restrict__ packed,
                    const uint8_t* __restrict__ valid,
                    const int* __restrict__ qidx, const int* __restrict__ tidx,
                    int* __restrict__ out, int n, int block, float scale) {
-  __shared__ uint4 st[kChunk][2];
-  __shared__ int spen[kChunk];
+  __shared__ __align__(16) unsigned char smem[hamming_mma::kSmemBytes];
   __shared__ int scratch[kThreads / 32];
   extern __shared__ int d1s[];  // [n] per-query-row nearest distance
 
@@ -80,46 +67,15 @@ band_counts_kernel(const uint4* __restrict__ packed,
   const int p = blockIdx.x / (block * block);
   const size_t qframe = static_cast<size_t>(qidx[p]) * block + qf;
   const size_t tframe = static_cast<size_t>(tidx[p]) * block + tf;
-  const uint4* q = packed + qframe * n * 2;
-  const uint4* t = packed + tframe * n * 2;
   const uint8_t* qv = valid + qframe * n;
-  const uint8_t* tv = valid + tframe * n;
   const int tid = threadIdx.x;
 
-  for (int base = 0; base < n; base += kThreads * kRows) {
-    uint4 qa[kRows], qb[kRows];
-    int best[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = base + r * kThreads + tid;
-      const bool in = row < n;
-      qa[r] = in ? q[2 * row] : make_uint4(0, 0, 0, 0);
-      qb[r] = in ? q[2 * row + 1] : make_uint4(0, 0, 0, 0);
-      best[r] = 1 << 20;
-    }
-    for (int t0 = 0; t0 < n; t0 += kChunk) {
-      __syncthreads();  // the previous chunk is no longer being read
-      for (int j = tid; j < kChunk && t0 + j < n; j += kThreads) {
-        st[j][0] = t[2 * (t0 + j)];
-        st[j][1] = t[2 * (t0 + j) + 1];
-        spen[j] = tv[t0 + j] ? 0 : kPenalty;
-      }
-      __syncthreads();
-      const int cnt = min(kChunk, n - t0);
-      for (int j = 0; j < cnt; ++j) {
-        const uint4 ta = st[j][0], tb = st[j][1];
-        const int pen = spen[j];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          best[r] = min(best[r], ham(qa[r], qb[r], ta, tb) + pen);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = base + r * kThreads + tid;
-      if (row < n) d1s[row] = best[r];
-    }
-  }
+  int* d1 = d1s;
+  for (int base = 0; base < n; base += hamming_mma::kSlab)
+    hamming_mma::nearest_valid_distance(
+        packed + qframe * n * 8, n, base, packed + tframe * n * 8,
+        valid + tframe * n, 0, n, smem,
+        [d1](int row, int d) { d1[row] = d; });
   __syncthreads();
 
   int mn = 512;
@@ -163,15 +119,16 @@ extern "C" int slam_band_count_tiles(const void* packed, const void* valid,
   const long long blocks = static_cast<long long>(p_cnt) * block * block;
   const size_t smem = static_cast<size_t>(n) * sizeof(int);
   if (blocks > 0) {
-    // above 48 KB of dynamic shared memory (n > ~7.6k rows with the static
-    // 18 KB) the kernel must opt in; past the card's limit the launch fails
-    // and the error is returned
+    // above 48 KB of dynamic shared memory (n > ~7.4k rows with the static
+    // 18.5 KB of staging) the kernel must opt in; past the card's limit the
+    // launch fails and the error is returned
     cudaFuncSetAttribute(band_counts_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
     band_counts_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint4*>(packed), static_cast<const uint8_t*>(valid),
+        static_cast<const uint32_t*>(packed),
+        static_cast<const uint8_t*>(valid),
         static_cast<const int*>(qidx), static_cast<const int*>(tidx),
         static_cast<int*>(out), n, block, scale);
   }

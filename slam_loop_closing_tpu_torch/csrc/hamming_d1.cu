@@ -8,103 +8,58 @@
 // Replaces: slam_loop_closing_tpu/ops/pallas_kernels.py, _hamming_d1_kernel
 // (via hamming_nn_d1 and good_count_pair_pallas). The TPU kernel took the
 // maximum of the raw +-1 int8 dot on its matrix unit, one frame pair per
-// call; here the distances are XOR + __popc on the packed words and the pair
-// list indexes the descriptor stores in place, so the dense all-pairs scan
-// of a sequence is one launch per chunk of pairs with no gathered copy.
+// call; here the distances come from the tensor cores' b1 and-popc product
+// on the packed words (hamming_mma.cuh) and the pair list indexes the
+// descriptor stores in place, so the dense all-pairs scan of a sequence is
+// one launch per chunk of pairs with no gathered copy.
 //
-// Design: the band-count kernel's inner loop without its finalize. One block
-// of 256 threads per (pair, slab of 2048 query rows, split of the target
-// rows). Each thread holds 8 query rows in registers; the block stages 512
-// target rows (16 KB) at a time in shared memory and every staged row (two
-// 16-byte broadcast loads) serves the thread's 8 query rows. An invalid
-// target row adds 512 to its distances, so it never wins a minimum below
-// 257. With many pairs (the dense scan) there is one split and the block
-// writes d1 itself. With few pairs (one 8192 x 8192 call is 4 slabs) the
-// target rows are split over blocks to fill the card; each split writes its
-// minima to a scratch buffer and a second small kernel takes the minimum
-// over splits. No atomics: the result is deterministic and bitwise equal to
-// the plain version.
+// Design: one block of 256 threads per (pair, slab of 1,024 query rows, split
+// of the target rows); the block's work is hamming_mma.cuh's
+// nearest_valid_distance. With many pairs (the dense scan) there is one
+// split and the block writes d1 itself. With few pairs (one 8192 x 8192 call
+// is 8 slabs) the target rows are split over blocks to fill the card; each
+// split writes its minima to a scratch buffer and a second small kernel takes
+// the minimum over splits. No atomics: the result is deterministic and
+// bitwise equal to the plain version.
 //
-// Bound on the H100: integer issue rate, as the band-count kernel (8 XOR, 8
-// POPC at quarter rate, 8 adds and a min per row pair). Later work: the +-1
-// int8 form on the tensor cores (wgmma s8, int32 accumulation, exact).
+// Bound on the H100: the tensor cores' b1 rate (see hamming_mma.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hamming_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 8;       // query rows per thread
-constexpr int kChunk = 512;    // target rows staged per pass
-constexpr int kPenalty = 512;  // added to distances to invalid target rows
+using hamming_mma::kSlab;
+using hamming_mma::kThreads;
+
 constexpr int kBig = 1 << 30;  // d1 of a row with no valid target
 
-__device__ __forceinline__ int ham(const uint4& qa, const uint4& qb,
-                                   const uint4& ta, const uint4& tb) {
-  return __popc(qa.x ^ ta.x) + __popc(qa.y ^ ta.y) + __popc(qa.z ^ ta.z) +
-         __popc(qa.w ^ ta.w) + __popc(qb.x ^ tb.x) + __popc(qb.y ^ tb.y) +
-         __popc(qb.z ^ tb.z) + __popc(qb.w ^ tb.w);
-}
-
-// q: [fq, n_q, 2] uint4 (8 words per row); t: [ft, n_t, 2] uint4;
-// vt: [ft, n_t] uint8; qidx, tidx: [p] int32; out: [splits, p, n_q] int32.
+// q: [fq, n_q, 8] words; t: [ft, n_t, 8] words; vt: [ft, n_t] uint8;
+// qidx, tidx: [p] int32; out: [splits, p, n_q] int32.
 // blockIdx.x = (pair * slabs + slab) * splits + split; split s scans target
 // rows [s * split_len, min(n_t, (s + 1) * split_len)).
-__global__ void __launch_bounds__(kThreads)
-hamming_d1_kernel(const uint4* __restrict__ q, const uint4* __restrict__ t,
+__global__ void __launch_bounds__(kThreads, hamming_mma::kMinBlocks)
+hamming_d1_kernel(const uint32_t* __restrict__ q,
+                  const uint32_t* __restrict__ t,
                   const uint8_t* __restrict__ vt,
                   const int* __restrict__ qidx, const int* __restrict__ tidx,
                   int* __restrict__ out, int p_cnt, int n_q, int n_t,
                   int slabs, int splits, int split_len) {
-  __shared__ uint4 st[kChunk][2];
-  __shared__ int spen[kChunk];
+  __shared__ __align__(16) unsigned char smem[hamming_mma::kSmemBytes];
 
   const int split = blockIdx.x % splits;
   const int slab = (blockIdx.x / splits) % slabs;
   const int pair = blockIdx.x / (splits * slabs);
-  const uint4* qf = q + static_cast<size_t>(qidx[pair]) * n_q * 2;
+  const uint32_t* qf = q + static_cast<size_t>(qidx[pair]) * n_q * 8;
   const size_t t_base = static_cast<size_t>(tidx[pair]) * n_t;
-  const uint4* tf = t + t_base * 2;
-  const uint8_t* tv = vt + t_base;
-  const int tid = threadIdx.x;
-  const int base = slab * kThreads * kRows;
   const int t_begin = split * split_len;
-  const int t_end = min(n_t, t_begin + split_len);
-
-  uint4 qa[kRows], qb[kRows];
-  int best[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = base + r * kThreads + tid;
-    const bool in = row < n_q;
-    qa[r] = in ? qf[2 * row] : make_uint4(0, 0, 0, 0);
-    qb[r] = in ? qf[2 * row + 1] : make_uint4(0, 0, 0, 0);
-    best[r] = 1 << 20;
-  }
-  for (int t0 = t_begin; t0 < t_end; t0 += kChunk) {
-    __syncthreads();  // the previous chunk is no longer being read
-    for (int j = tid; j < kChunk && t0 + j < t_end; j += kThreads) {
-      st[j][0] = tf[2 * (t0 + j)];
-      st[j][1] = tf[2 * (t0 + j) + 1];
-      spen[j] = tv[t0 + j] ? 0 : kPenalty;
-    }
-    __syncthreads();
-    const int cnt = min(kChunk, t_end - t0);
-    for (int j = 0; j < cnt; ++j) {
-      const uint4 ta = st[j][0], tb = st[j][1];
-      const int pen = spen[j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        best[r] = min(best[r], ham(qa[r], qb[r], ta, tb) + pen);
-    }
-  }
   int* o = out + (static_cast<size_t>(split) * p_cnt + pair) * n_q;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = base + r * kThreads + tid;
-    if (row < n_q) o[row] = best[r] < 257 ? best[r] : kBig;
-  }
+  hamming_mma::nearest_valid_distance(
+      qf, n_q, slab * kSlab, t + t_base * 8, vt + t_base, t_begin,
+      min(n_t, t_begin + split_len), smem,
+      [o](int row, int d) { o[row] = d < 257 ? d : kBig; });
 }
 
 // out[i] = min over s of partial[s, i], i < total
@@ -119,6 +74,13 @@ min_over_splits_kernel(const int* __restrict__ partial, int* __restrict__ out,
   out[i] = v;
 }
 
+// out[i, j] = popc(q_i & t_j), rows [0, 64) of each: the raw tile product
+__global__ void tile_product_kernel(const uint32_t* __restrict__ q,
+                                    const uint32_t* __restrict__ t,
+                                    int* __restrict__ out) {
+  hamming_mma::tile_product_64(q, t, out);
+}
+
 }  // namespace
 
 // d1 [p, n_q] of the frame pairs (qidx[p], tidx[p]). With splits == 1 the
@@ -130,14 +92,14 @@ extern "C" int slam_hamming_d1(const void* q, const void* t, const void* vt,
                                int splits, void* stream) {
   if (p > 0 && n_q > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int slabs = (n_q + kThreads * kRows - 1) / (kThreads * kRows);
+    const int slabs = (n_q + kSlab - 1) / kSlab;
     if (splits < 1) splits = 1;
     const int split_len = (n_t + splits - 1) / splits;
     const long long blocks = static_cast<long long>(p) * slabs * splits;
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     int* dst = static_cast<int*>(splits > 1 ? partial : d1);
     hamming_d1_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        static_cast<const uint4*>(q), static_cast<const uint4*>(t),
+        static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(t),
         static_cast<const uint8_t*>(vt), static_cast<const int*>(qidx),
         static_cast<const int*>(tidx), dst, p, n_q, n_t, slabs, splits,
         split_len);
@@ -149,5 +111,16 @@ extern "C" int slam_hamming_d1(const void* q, const void* t, const void* vt,
           splits);
     }
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Layout check of the tensor-core product: out [64, 64] int32 =
+// popc(q_i & t_j) of the first 64 rows of q and t ([>= 64, 8] words each),
+// through the fragment loads and the mma of hamming_mma.cuh.
+extern "C" int slam_hamming_tile_product(const void* q, const void* t,
+                                         void* out, void* stream) {
+  tile_product_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(t),
+      static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,6 +28,10 @@ l2_knn2                csrc/l2_knn2.cu               ``_l2_knn2_kernel``
 gauss_stack_resp       csrc/gauss_stack_resp.cu      ``_gauss_stack_resp_kernel``
                                                      and ``_gauss_stack_kernel``
 =====================  ============================  ===========================
+
+``band_count_tiles``, ``pair_counts`` and ``hamming_d1`` share one inner loop,
+``csrc/hamming_mma.cuh``: the tensor cores' one-bit and-popc product on the
+packed words.
 """
 
 from __future__ import annotations
@@ -69,11 +73,14 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
+    """Launch ``slam_<name>`` on ``device``'s current stream and, for a
+    kernel of :data:`LAUNCHES`, count it."""
     fn = getattr(cuda_build.load(), f"slam_{name}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         cuda_build.check(fn(*args, stream), name)
-    LAUNCHES[name] += 1
+    if name in LAUNCHES:
+        LAUNCHES[name] += 1
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -187,8 +194,9 @@ def band_count_tiles(packed: torch.Tensor, valid: torch.Tensor,
                      qidx: torch.Tensor, tidx: torch.Tensor, block: int,
                      scale: float = 2.0) -> torch.Tensor:
     """:func:`band_count_tiles_plain`, as one CUDA kernel on CUDA tensors
-    (XOR + popcount distances, count finalize in the kernel). Counts are
-    integers: bitwise equal to the plain version."""
+    (distances from the tensor cores' b1 and-popc product on the packed
+    words, count finalize in the kernel). Counts are integers: bitwise equal
+    to the plain version."""
     _require(packed.dim() == 3 and packed.shape[2] == desc_ops.WORDS
              and packed.dtype == torch.int32, "packed must be [F, N, 8] int32")
     f, n, _ = packed.shape
@@ -402,7 +410,7 @@ def hamming_knn2(packed_q: torch.Tensor, valid_q: torch.Tensor,
 # I: d1-only Hamming nearest neighbour of frame pairs
 # --------------------------------------------------------------------------
 
-_D1_SLAB = 2048          # query rows per block of kernel I (256 threads x 8)
+_D1_SLAB = 1024          # query rows per block of kernel I (8 warps x 128)
 _D1_MIN_SPLIT_ROWS = 128  # fewest target rows a split of kernel I scans
 
 
@@ -444,8 +452,9 @@ def hamming_d1_pairs(packed_q: torch.Tensor, packed_t: torch.Tensor,
                      valid_t: torch.Tensor, qidx: torch.Tensor,
                      tidx: torch.Tensor) -> torch.Tensor:
     """:func:`hamming_d1_pairs_plain`; on CUDA tensors one launch of kernel I
-    over the whole pair list (8 query rows per thread in registers, target
-    rows staged in shared memory, XOR + ``__popc``). The pairs index the
+    over the whole pair list (128 query rows per warp as tensor-core
+    fragments in registers, target rows staged in shared memory, the b1
+    and-popc product of ``csrc/hamming_mma.cuh``). The pairs index the
     stores in place (``qidx``/``tidx`` stay on the device: they must lie in
     range, as the plain version's ``index_select`` checks). Bitwise equal to
     the plain version."""
@@ -503,6 +512,35 @@ def hamming_nn_d1(packed_q: torch.Tensor, packed_t: torch.Tensor,
     zero = torch.zeros(1, dtype=torch.int32, device=packed_q.device)
     return hamming_d1_pairs(packed_q[None], packed_t[None], valid_t[None],
                             zero, zero)[0]
+
+
+def hamming_tile_product_plain(packed_q: torch.Tensor,
+                               packed_t: torch.Tensor) -> torch.Tensor:
+    """[64, 64] int32 ``popc(q_i & t_j)`` of the first 64 rows of two
+    ``[>= 64, 8]`` int32 word stores: the raw product the tensor-core
+    kernels (C, K5, I) build their distances from,
+    ``d = popc(q) + popc(t) - 2 popc(q & t)``."""
+    both = packed_q[:64, None, :] & packed_t[None, :64, :]
+    return torch.sum(desc_ops.popcount32(both), dim=-1).to(torch.int32)
+
+
+def hamming_tile_product(packed_q: torch.Tensor,
+                         packed_t: torch.Tensor) -> torch.Tensor:
+    """:func:`hamming_tile_product_plain`; on CUDA tensors one warp through
+    the fragment loads and the ``mma`` of ``csrc/hamming_mma.cuh``. A layout
+    check for tests, on no path of the system: it has no launch count."""
+    for w in (packed_q, packed_t):
+        _require(w.dim() == 2 and w.shape[0] >= 64
+                 and w.shape[1] == desc_ops.WORDS and w.dtype == torch.int32,
+                 "words must be [>= 64, 8] int32")
+    if not _on_cuda(packed_q, packed_t):
+        return hamming_tile_product_plain(packed_q, packed_t)
+    packed_q = packed_q.contiguous()
+    packed_t = packed_t.contiguous()
+    out = torch.empty((64, 64), dtype=torch.int32, device=packed_q.device)
+    _launch("hamming_tile_product", packed_q.device, packed_q.data_ptr(),
+            packed_t.data_ptr(), out.data_ptr())
+    return out
 
 
 # --------------------------------------------------------------------------

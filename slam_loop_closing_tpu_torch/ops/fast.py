@@ -92,6 +92,31 @@ def select_topk(score: torch.Tensor, num_features: int, border: int = 19):
     return torch.stack([x, y], dim=-1), resp, resp > 0.0
 
 
+def select_topk_banded(score: torch.Tensor, num_features: int,
+                       border: int = 19, bands: int = 16):
+    """Top-K of ``[B, H, W]`` maps via horizontal bands: each band gives its
+    local top-(K / bands + 32), then one small top-K merges the candidates;
+    band caps also spread keypoints over the frame. Ties go to the lowest
+    index at both steps. Returns (xy, response, valid) like
+    :func:`select_topk`."""
+    b, h, w = score.shape
+    masked = torch.where(_interior(h, w, border, score.device), score, 0.0)
+    pad_h = (-h) % bands
+    if pad_h:
+        masked = F.pad(masked, (0, 0, 0, pad_h))
+    bh = (h + pad_h) // bands
+    per_band = -(-num_features // bands) + 32  # slack for uneven density
+    resp_b, idx_b = _topk_lowest_index(masked.reshape(b, bands, bh * w),
+                                       per_band)
+    band_base = (torch.arange(bands, device=score.device) * bh * w)[:, None]
+    gidx = (idx_b + band_base).reshape(b, -1)
+    resp, sel = _topk_lowest_index(resp_b.reshape(b, -1), num_features)
+    idx = torch.gather(gidx, 1, sel)
+    y = (idx // w).to(torch.float32)
+    x = (idx % w).to(torch.float32)
+    return torch.stack([x, y], dim=-1), resp, resp > 0.0
+
+
 def select_topk_grid(score: torch.Tensor, num_features: int, border: int = 19,
                      cell: int = 8):
     """Top-K with at most one keypoint per ``cell x cell`` cell. Each

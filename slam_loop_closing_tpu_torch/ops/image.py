@@ -28,6 +28,13 @@ def ship_frames(frames, device: str | torch.device) -> torch.Tensor:
     return fr.to(torch.float32)
 
 
+def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
+    """[..., 3] -> [...] with the BT.601 weights OpenCV uses."""
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=img.dtype,
+                     device=img.device)
+    return img @ w
+
+
 def gaussian_kernel1d(sigma: float, radius: int | None = None) -> torch.Tensor:
     """Normalised 1-D Gaussian taps, float32 on the CPU. Computed with the
     same float32 operations as the JAX package, which gives the same bits
@@ -81,6 +88,24 @@ def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     v11 = img[y0 + 1, x0 + 1]
     return ((1 - fy) * ((1 - fx) * v00 + fx * v01)
             + fy * ((1 - fx) * v10 + fx * v11))
+
+
+def undistort_image(img: torch.Tensor, K: torch.Tensor,
+                    dist: torch.Tensor) -> torch.Tensor:
+    """Full-image undistortion of ``img`` [H, W]: every output pixel goes
+    through the FORWARD distortion model to its source pixel, sampled
+    bilinearly (the remap formulation of ``cv::undistort``). The pipelines
+    undistort keypoints instead (:func:`..camera.undistort_points`); this
+    gives image-level parity."""
+    from slam_loop_closing_tpu_torch.ops import camera as camera_ops
+
+    h, w = img.shape
+    gv, gu = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=img.device),
+        torch.arange(w, dtype=torch.float32, device=img.device),
+        indexing="ij")
+    src = camera_ops.distort_points(K, dist, torch.stack([gu, gv], dim=-1))
+    return bilinear_sample(img, src)
 
 
 @functools.cache

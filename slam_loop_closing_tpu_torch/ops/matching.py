@@ -275,6 +275,30 @@ def dense_pair_counts_chunked(signed: torch.Tensor, valid: torch.Tensor,
     return out.cpu().numpy()
 
 
+def dense_pair_counts(signed: torch.Tensor, valid: torch.Tensor,
+                      scale: float = 2.0, t_block: int = 16) -> torch.Tensor:
+    """Full [F, F] int32 good-match-count matrix of ``signed`` [F, N, 256],
+    ``valid`` [F, N]: every ordered frame pair, the diagonal and the upper
+    triangle included, by the float32 threshold rule of
+    :func:`block_pair_counts`; band-mask afterwards. The frame-pair count
+    kernel runs ``t_block`` target frames of every query frame a launch
+    (which bounds the pair list, as it bounds the JAX package's transient
+    distance block)."""
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels
+
+    f = signed.shape[0]
+    dev = signed.device
+    packed = desc_ops.signed_to_packed(signed)
+    frames = torch.arange(f, dtype=torch.int32, device=dev)
+    cols = []
+    for t0 in range(0, f, t_block):
+        tb = frames[t0:t0 + t_block]
+        cols.append(cuda_kernels.pair_counts(
+            packed, valid, frames.repeat_interleave(tb.shape[0]),
+            tb.repeat(f), scale).reshape(f, tb.shape[0]))
+    return torch.cat(cols, dim=1)
+
+
 def similarity(counts: torch.Tensor, nq: torch.Tensor,
                nt: torch.Tensor) -> torch.Tensor:
     """Version-A similarity score ``matches / min(n1, n2)`` (README.md:121)."""

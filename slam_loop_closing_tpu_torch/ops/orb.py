@@ -66,6 +66,80 @@ def make_pattern(seed: int, bits: int = 256, patch_size: int = 31) -> np.ndarray
     return np.clip(pts, -lim, lim).astype(np.float32)
 
 
+def orientation(img: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor,
+                patch_radius: int = PATCH_RADIUS) -> torch.Tensor:
+    """Intensity-centroid orientation of the keypoints ``xy`` [K, 2] of one
+    frame ``img`` [H, W]: ``atan2(m01, m10)`` with the moments over a
+    circular window of ``patch_radius`` (IC_Angle in cv::ORB), the window
+    clamped into the frame. [K] float32 radians, 0 for invalid keypoints.
+    The gather form; the pipeline takes the moments from the 32x32 patches
+    (:func:`orientation_from_patches`)."""
+    d = 2 * patch_radius + 1
+    h, w = img.shape
+    offs = torch.arange(-patch_radius, patch_radius + 1, dtype=torch.float32,
+                        device=img.device)
+    circ = (offs[:, None] ** 2 + offs[None, :] ** 2) <= patch_radius ** 2
+    x0 = torch.clamp(xy[:, 0].to(torch.int64) - patch_radius, 0, w - d)
+    y0 = torch.clamp(xy[:, 1].to(torch.int64) - patch_radius, 0, h - d)
+    win = torch.arange(d, device=img.device)
+    patches = img[(y0[:, None] + win)[:, :, None],
+                  (x0[:, None] + win)[:, None, :]]           # [K, d, d]
+    pw = torch.where(circ, patches, 0.0)
+    m10 = torch.sum(pw * offs[None, None, :], dim=(1, 2))   # x moment
+    m01 = torch.sum(pw * offs[None, :, None], dim=(1, 2))   # y moment
+    return torch.where(valid, torch.atan2(m01, m10), 0.0)
+
+
+def _rotated_pattern(angle: torch.Tensor,
+                     pattern: torch.Tensor) -> torch.Tensor:
+    """[K, 256, 2, 2] offsets of ``pattern`` [256, 2, 2] rotated by each
+    keypoint's ``angle`` [K]."""
+    c, s = torch.cos(angle), torch.sin(angle)
+    rot = torch.stack([torch.stack([c, -s], -1),
+                       torch.stack([s, c], -1)], -2)        # [K, 2, 2]
+    return torch.einsum("kab,pqb->kpqa", rot, pattern)
+
+
+def brief_descriptors(img_blurred: torch.Tensor, xy: torch.Tensor,
+                      angle: torch.Tensor, valid: torch.Tensor,
+                      pattern: torch.Tensor) -> torch.Tensor:
+    """Rotated-BRIEF bits of the keypoints of one pre-blurred frame
+    [H, W]: [K, 256] uint8. Every pair of ``pattern`` [256, 2, 2] is rotated
+    by the keypoint's exact angle, sampled bilinearly from the frame and
+    compared (``A < B``); invalid keypoints get zero bits."""
+    pos = _rotated_pattern(angle, pattern) + xy[:, None, None, :]
+    samples = image_ops.bilinear_sample(img_blurred, pos)   # [K, 256, 2]
+    bits = (samples[..., 0] < samples[..., 1]).to(torch.uint8)
+    return torch.where(valid[:, None], bits, 0).to(torch.uint8)
+
+
+def brief_from_patches(patches: torch.Tensor, centers: torch.Tensor,
+                       angle: torch.Tensor, valid: torch.Tensor,
+                       pattern: torch.Tensor) -> torch.Tensor:
+    """:func:`brief_descriptors` sampled INSIDE the per-keypoint patches
+    ``patches`` [K, P, P] with their (cx, cy) ``centers`` [K, 2] (see
+    :func:`extract_patches`): exact rotation, bilinear interpolation from
+    four patch-local gathers. [K, 256] uint8."""
+    k, p, _ = patches.shape
+    pos = _rotated_pattern(angle, pattern) + centers[:, None, None, :]
+    x = torch.clamp(pos[..., 0], 0.0, p - 1.001)
+    y = torch.clamp(pos[..., 1], 0.0, p - 1.001)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0).reshape(k, -1, 2)
+    fy = (y - y0).reshape(k, -1, 2)
+    flat = patches.reshape(k, p * p)
+    base = (y0.long() * p + x0.long()).reshape(k, -1)       # [K, 512]
+
+    def take(off):
+        return torch.gather(flat, 1, base + off).reshape(k, -1, 2)
+
+    samples = ((1 - fy) * ((1 - fx) * take(0) + fx * take(1))
+               + fy * ((1 - fx) * take(p) + fx * take(p + 1)))
+    bits = (samples[..., 0] < samples[..., 1]).to(torch.uint8)
+    return torch.where(valid[:, None], bits, 0).to(torch.uint8)
+
+
 def extract_patches(imgs: torch.Tensor, xy: torch.Tensor, patch: int = PATCH,
                     center: int = PATCH_CENTER):
     """[B, K, patch, patch] pixel patches of ``[B, H, W]`` frames around
@@ -247,3 +321,13 @@ def detect_and_describe_batch(imgs: torch.Tensor, cfg: OrbConfig = OrbConfig(),
     return OrbFeatures(keypoints=kps,
                        descriptors=desc_ops.bits_to_packed(bits),
                        signed=signed)
+
+
+def detect_and_describe(img: torch.Tensor, cfg: OrbConfig = OrbConfig(),
+                        pattern: torch.Tensor | None = None) -> OrbFeatures:
+    """Full ORB on ONE grayscale ``[H, W]`` float32 frame: the features of
+    :func:`detect_and_describe_batch` without the batch axis."""
+    feats = detect_and_describe_batch(img[None], cfg, pattern)
+    return OrbFeatures(keypoints=Keypoints(*(v[0] for v in feats.keypoints)),
+                       descriptors=feats.descriptors[0],
+                       signed=feats.signed[0])

@@ -195,3 +195,21 @@ def estimate_essential_ransac(x1: torch.Tensor, x2: torch.Tensor,
                          tuple(x1.shape[:-2]))
     idx = sample_minimal_sets(noise, mask, cfg.min_points, quality)
     return essential_from_samples(x1, x2, mask, idx, focal, cfg)
+
+
+def estimate_essential_ransac_pairs(x1: torch.Tensor, x2: torch.Tensor,
+                                    mask: torch.Tensor,
+                                    generator: torch.Generator,
+                                    focal: torch.Tensor | float,
+                                    cfg: RansacConfig = RansacConfig(),
+                                    quality: torch.Tensor | None = None
+                                    ) -> EssentialResult:
+    """:func:`estimate_essential_ransac` over a leading pair axis
+    (``x1``, ``x2`` [P, N, 2], ``mask`` [P, N]): all candidate loop pairs
+    verified in one batch, every field of the result with the pair axis
+    first. The JAX package takes a key per pair; here one ``generator``
+    draws every pair's noise."""
+    if x1.dim() != 3 or x2.shape != x1.shape or mask.shape != x1.shape[:2]:
+        raise ValueError("pairs: x1, x2 [P, N, 2] and mask [P, N]")
+    return estimate_essential_ransac(x1, x2, mask, generator, focal, cfg,
+                                     quality)

@@ -120,6 +120,8 @@ def load() -> ctypes.CDLL:
         # q, t, valid_t, qidx, tidx, d1, partial, p_cnt, n_q, n_t, splits,
         # stream
         "slam_hamming_d1": (p, p, p, p, p, p, p, i, i, i, i, p),
+        # q [>= 64, 8], t [>= 64, 8], out [64, 64], stream
+        "slam_hamming_tile_product": (p, p, p, p),
         # q [batch, n, 4], mask, out, batch, n, radius^2, tau^2, stream
         "slam_motion_support": (p, p, p, i, i, f, f, p),
         # q, t, valid_q, valid_t, qidx, tidx, d1, idx, d2, p_cnt, n_q, n_t,

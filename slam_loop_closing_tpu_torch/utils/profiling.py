@@ -34,6 +34,13 @@ def trace(log_dir: str | Path | None):
     prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
 
 
+def annotate(name: str):
+    """Named range for device timelines: a context manager
+    (``torch.profiler.record_function``) whose block shows under ``name`` in
+    a :func:`trace`."""
+    return torch.profiler.record_function(name)
+
+
 class StageTimer:
     """Wall-clock stage timing on ``device`` with a frames/sec summary."""
 

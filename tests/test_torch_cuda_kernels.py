@@ -84,8 +84,8 @@ def test_patch_kernel_bitwise(dev, patch, center):
 @pytest.mark.parametrize("n,block", [(40, 4), (2100, 2), (8000, 1)])
 def test_band_kernel_bitwise(dev, n, block):
     """Random +-1 descriptors with an all-invalid frame and duplicates; n
-    2100 crosses a 2048-row query pass and several 512-row target chunks;
-    n 8000 needs more than 48 KB of shared memory."""
+    2100 crosses two 1024-row query slabs and several 512-row target
+    chunks; n 8000 needs more than 48 KB of shared memory."""
     rng = np.random.default_rng(n)
     f = 4 * block
     signed = (rng.integers(0, 2, (f, n, 256)) * 2 - 1).astype(np.int8)
@@ -269,7 +269,7 @@ def test_hamming_knn2_kernel_bitwise(dev, m, n, pairs):
 def test_hamming_d1_kernel_bitwise(dev, m, n, pairs):
     """A query store and a target store indexed in place by a pair list:
     queries equal to targets, invalid target rows, an all-invalid target
-    frame, query rows crossing 2048-row slabs, targets crossing 512-row
+    frame, query rows crossing 1024-row slabs, targets crossing 512-row
     chunks, and (few pairs) the target rows split over blocks."""
     rng = np.random.default_rng(m + n + pairs)
     sq = (rng.integers(0, 2, (6, m, 256)) * 2 - 1).astype(np.int8)
@@ -301,6 +301,72 @@ def test_hamming_d1_kernel_bitwise(dev, m, n, pairs):
     assert torch.equal(one, ck.hamming_nn(pq[1], torch.ones(m, dtype=torch.bool,
                                                             device=dev),
                                           pt[2], vt[2])[0])
+
+
+def test_hamming_tile_product_on_card(dev):
+    """The raw [64, 64] product of the tensor-core fragments, before any
+    maximum: popc(q & t) of every row pair, and through it the distances of
+    ``matching.hamming_matrix`` (a wrong fragment layout would still give
+    plausible minima)."""
+    rng = np.random.default_rng(64)
+    words = rng.integers(0, 2 ** 32, (2, 70, 8), dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+    pq, pt = torch.from_numpy(words).to(dev)
+    got = ck.hamming_tile_product(pq, pt)
+    assert torch.equal(got, ck.hamming_tile_product_plain(pq, pt))
+    pop = [desc_ops.popcount32(w[:64]).sum(-1) for w in (pq, pt)]
+    d = matching.hamming_matrix(desc_ops.packed_to_signed(pq[:64]),
+                                desc_ops.packed_to_signed(pt[:64]))
+    assert torch.equal(pop[0][:, None] + pop[1][None, :] - 2 * got, d)
+
+
+@pytest.mark.parametrize("n", [300, 1001, 1536, 2000, 4000])
+def test_tensor_core_counts_bitwise(dev, n):
+    """Kernels I, C and K5 on one store of ``n``-row frames (no multiple of
+    a tile, a slab or a chunk among them) with a fifth of the rows invalid,
+    a short frame, an empty frame, duplicated rows, a frame whose rows all
+    have an even popcount and one where all are odd (the kernels stage
+    target rows by that parity): a single pair and a long pair list (kernel
+    I with its target rows split over blocks, and in one piece), the
+    frame-pair counts, and 2 x 2 frame tiles."""
+    rng = np.random.default_rng(n)
+    f = 8
+    words = rng.integers(0, 2 ** 32, (f, n, 8), dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+    parity = desc_ops.popcount32(torch.from_numpy(words)).sum(-1).numpy() & 1
+    words[4, :, 0] ^= parity[4].astype(np.int32)          # all even
+    words[7, :, 0] ^= 1 - parity[7].astype(np.int32)      # all odd
+    words[6, :40] = words[1, :40]
+    valid = rng.random((f, n)) > 0.2
+    valid[3] = False                                  # an empty frame
+    valid[5, n // 10:] = False                        # a short frame
+    valid[6, :40] = valid[1, :40] = True
+    packed = torch.from_numpy(words).to(dev)
+    vt = torch.from_numpy(valid).to(dev)
+
+    one = torch.tensor([6], dtype=torch.int32, device=dev)
+    few_q, few_t = one, torch.tensor([1], dtype=torch.int32, device=dev)
+    many_q = torch.arange(f, dtype=torch.int32, device=dev).repeat_interleave(f).repeat(6)
+    many_t = torch.arange(f, dtype=torch.int32, device=dev).repeat(f * 6)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert ck._d1_splits(1, n, n, sms) > 1
+    assert ck._d1_splits(many_q.shape[0], n, n, sms) == 1
+    for qi, ti in ((few_q, few_t), (many_q, many_t)):
+        d1 = ck.hamming_d1_pairs(packed, packed, vt, qi, ti)
+        assert torch.equal(d1, ck.hamming_d1_pairs_plain(packed, packed, vt,
+                                                         qi, ti))
+        got = ck.pair_counts(packed, vt, qi, ti)
+        assert torch.equal(got, ck.pair_counts_plain(packed, vt, qi, ti))
+        assert torch.equal(got, matching.all_pairs_good_counts(packed, vt,
+                                                               qi, ti))
+    assert (d1[3] == 2 ** 30).all()                   # pair (0, 3): no target
+    assert int(got[6 * f + 1]) >= 40 and int(got[3]) == 0
+
+    tq, tt = torch.tensor([[0, 1], [2, 3], [3, 0], [1, 1]], dtype=torch.int32,
+                          device=dev).T
+    tiles = ck.band_count_tiles(packed, vt, tq, tt, 2)
+    assert torch.equal(tiles, ck.band_count_tiles_plain(packed, vt, tq, tt, 2))
+    assert tiles.max() > 0 and int(tiles[0, 1, 1]) == 0     # frame 3 targets
 
 
 def test_dense_pair_counts_on_card_equal_cpu_and_tiles(dev):

@@ -3,7 +3,8 @@ sequence) against the JAX package on the CPU: the plain version of the
 d1-only nearest-neighbour kernel against the TPU kernel in interpret mode,
 ``good_count_pair``, ``all_pairs_good_counts`` and
 ``dense_pair_counts_chunked`` against the JAX functions, the pair route
-against the tile route, and the truncated threshold at a non-integer scale.
+against the tile route, the truncated threshold at a non-integer scale, and
+the integer identities the tensor-core count kernels rest on.
 Distances and counts are integers: every comparison is bitwise."""
 
 import jax.numpy as jnp
@@ -206,3 +207,46 @@ def test_truncated_threshold_at_scale_1_5():
     np.testing.assert_array_equal(got_pair, ref_pair)
     np.testing.assert_array_equal(got_tile, ref_tile)
     assert got_pair[1, 0] == 1 and got_tile[1, 0] == 2
+
+
+@pytest.mark.parametrize("n", [300, 1001])
+def test_tensor_core_identities(n):
+    """What the tensor-core kernels compute, in torch on seeded words,
+    against ``matching.hamming_matrix``: the +-1 dot is 256 - 2 d; the b1
+    and-popc product gives d = popc(q) + popc(t) - 2 popc(q & t); a column
+    that starts at -1024 (the +-1 form) or carries popc(t) + 512 (the b1
+    form) reads d + 512; and the kernels' row rule on those numbers
+    (maximum of 2 popc(q & t) - column term, popc(q) minus it, 2^30 from
+    257 on) is the plain d1, with a fifth of the target rows invalid and
+    with none valid."""
+    rng = np.random.default_rng(n)
+    m = 130
+    pq = torch.from_numpy(rng.integers(0, 2 ** 32, (m, 8), dtype=np.uint64)
+                          .astype(np.uint32).view(np.int32))
+    pt = torch.from_numpy(rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64)
+                          .astype(np.uint32).view(np.int32))
+    pt[n // 2:n // 2 + 3] = pq[:3]                    # distance 0
+    sq, st = tdesc.packed_to_signed(pq), tdesc.packed_to_signed(pt)
+    d = tmatch.hamming_matrix(sq, st).to(torch.int64)            # [m, n]
+    dot = sq.to(torch.int64) @ st.to(torch.int64).T
+    assert torch.equal(256 - 2 * d, dot)
+    assert torch.equal((256 - (dot - 1024)) // 2, d + 512)
+
+    popq = tdesc.popcount32(pq).sum(-1)
+    popt = tdesc.popcount32(pt).sum(-1)
+    both = tdesc.popcount32(pq[:, None, :] & pt[None, :, :]).sum(-1)
+    assert torch.equal(popq[:, None] + popt[None, :] - 2 * both, d)
+    assert torch.equal(popq[:, None] + (popt + 512)[None, :] - 2 * both,
+                       d + 512)
+    assert torch.equal(
+        cuda_kernels.hamming_tile_product(pq, pt).to(torch.int64),
+        both[:64, :64])
+
+    some = torch.from_numpy(rng.random(n) > 0.2)
+    some[n // 2] = False                              # a duplicate, invalid
+    for valid_t in (some, torch.zeros(n, dtype=torch.bool)):
+        col = popt + 512 * (~valid_t)
+        d1 = popq - torch.amax(2 * both - col[None, :], dim=1)
+        d1 = torch.where(d1 < 257, d1, 2 ** 30).to(torch.int32)
+        assert torch.equal(d1, cuda_kernels.hamming_nn_d1(pq, pt, valid_t))
+    assert bool((d1 == 2 ** 30).all())

@@ -124,3 +124,18 @@ def test_plain_path_counts_no_launch(rng):
     before = cuda_kernels.LAUNCHES["fast_score_nms_blur"]
     cuda_kernels.fast_score_nms_blur(torch.zeros((1, 16, 16)))
     assert cuda_kernels.LAUNCHES["fast_score_nms_blur"] == before
+
+
+@pytest.mark.parametrize("h,w,k,bands", [(64, 96, 100, 16), (75, 133, 300, 8)])
+def test_select_topk_banded_ties_lowest_index(rng, h, w, k, bands):
+    """Per-band top-K then the merge, on maps full of tied scores (and a
+    height that is no multiple of the band count): the JAX package's
+    keypoints, responses and validity, bitwise."""
+    imgs = corner_frames(rng, 2, h, w)
+    score = np.asarray(jfast.nms(jfast.fast_score_map(jnp.asarray(imgs[0]))))
+    score = np.stack([score, np.round(score * 8) / 8])   # many exact ties
+    got = tfast.select_topk_banded(torch.from_numpy(score), k, 19, bands)
+    for b in range(2):
+        ref = jfast.select_topk_banded(jnp.asarray(score[b]), k, 19, bands)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g[b].numpy(), np.asarray(r))

@@ -269,3 +269,48 @@ def test_ransac_rejects_fewer_than_eight_points(scene):
         tconfig.RansacConfig(num_hypotheses=64))
     assert not bool(res.ok)
     assert not res.inliers[5:].any()
+
+
+def test_ransac_pairs_with_jax_samples(monkeypatch):
+    """``estimate_essential_ransac_pairs`` over three pairs, the JAX
+    package's minimal sets of each pair's key injected at the port's one
+    draw, on noise-free inliers with 30% outliers: the JAX pairs result
+    (masks equal, R and t within 1e-4) and the true inlier set. Shapes
+    without a pair axis are refused."""
+    n, p = N_POINTS, 3
+    rng = np.random.default_rng(8)
+    sc = two_view_scene(np.random.default_rng(5), n_points=n, noise_px=0.0,
+                        n_outliers=18)
+    x1, x2 = (np.stack([x] * p) for x in normalized(sc))
+    mask = np.ones((p, n), bool)
+    mask[1, :4] = False
+    mask[2, -5:] = False
+    quality = rng.random((p, n)).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(4), p)
+    cfg = jconfig.RansacConfig(num_hypotheses=256)
+    ref = jransac.estimate_essential_ransac_pairs(
+        jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(mask), keys, 800.0, cfg,
+        jnp.asarray(quality))
+    idx = np.stack([np.asarray(jransac._sample_minimal_sets(
+        keys[i], jnp.asarray(mask[i]), 256, 8, jnp.asarray(quality[i])))
+        for i in range(p)])
+    monkeypatch.setattr(transac, "sample_minimal_sets",
+                        lambda *a, **k: torch.from_numpy(idx))
+    t = torch.from_numpy
+    got = transac.estimate_essential_ransac_pairs(
+        t(x1), t(x2), t(mask), torch.Generator().manual_seed(0), 800.0,
+        tconfig.RansacConfig(num_hypotheses=256), t(quality))
+    assert got.R.shape == (p, 3, 3) and got.inliers.shape == (p, n)
+    np.testing.assert_array_equal(got.ok.numpy(), np.asarray(ref.ok))
+    assert np.asarray(ref.ok).all()
+    np.testing.assert_array_equal(got.inliers.numpy(), np.asarray(ref.inliers))
+    np.testing.assert_array_equal(got.pose_inliers.numpy(),
+                                  np.asarray(ref.pose_inliers))
+    np.testing.assert_array_equal(got.inliers.numpy() & mask,
+                                  np.stack([sc["inliers"]] * p) & mask)
+    assert np.abs(got.R.numpy() - np.asarray(ref.R)).max() < 1e-4
+    assert np.abs(got.t.numpy() - np.asarray(ref.t)).max() < 1e-4
+    with pytest.raises(ValueError):
+        transac.estimate_essential_ransac_pairs(
+            t(x1[0]), t(x2[0]), t(mask[0]), torch.Generator().manual_seed(0),
+            800.0)

@@ -89,3 +89,26 @@ def test_ship_frames_uint8_and_float(rng):
                                   np.asarray(jimage.ship_frames(u8)))
     f32 = rng.random((2, 16, 24)).astype(np.float32)
     np.testing.assert_array_equal(timage.ship_frames(f32, "cpu").numpy(), f32)
+
+
+def test_rgb_to_gray(rng):
+    """BT.601 weights; one float32 dot of three terms: within 1 ulp."""
+    rgb = rng.random((20, 30, 3)).astype(np.float32)
+    ref = np.asarray(jimage.rgb_to_gray(jnp.asarray(rgb)))
+    got = timage.rgb_to_gray(torch.from_numpy(rgb)).numpy()
+    assert got.shape == (20, 30)
+    assert ulp_distance(got, ref) <= 1
+
+
+def test_undistort_image(rng):
+    """Forward distortion of every pixel, then the port's bilinear sample:
+    the JAX package's image within the blur tests' rounding bound."""
+    img = rng.random((60, 80)).astype(np.float32)
+    K = np.array([[100, 0, 40], [0, 100, 30], [0, 0, 1]], np.float32)
+    dist = np.array([0.1, -0.05, 0.001, 0.002, 0.01], np.float32)
+    ref = np.asarray(jimage.undistort_image(jnp.asarray(img), jnp.asarray(K),
+                                            jnp.asarray(dist)))
+    got = timage.undistort_image(torch.from_numpy(img), torch.from_numpy(K),
+                                 torch.from_numpy(dist)).numpy()
+    assert np.abs(ref - img).max() > 0.01             # the remap moves pixels
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)

@@ -1,6 +1,7 @@
 """The port's batched Version-A slice against the JAX package on the CPU:
 ``process_video`` on the 32-frame orbit fixture of test_loop_closing.py
-(loop set, counts, similarities), ``process_videos_batched`` on three
+(loop set, counts, similarities) and on its multi-loop fixture (two true
+revisits, a distractor pass), ``process_videos_batched`` on three
 small videos, the loop report and its PNGs, the config and synthetic video
 copies, the conversion of the JAX package's arrays, and the rule that
 the port loads no JAX."""
@@ -28,7 +29,7 @@ from slam_loop_closing_tpu_torch.ops import matching as tmatch
 from slam_loop_closing_tpu_torch.ops import orb as torb
 from slam_loop_closing_tpu_torch.utils import convert
 from slam_loop_closing_tpu_torch.utils import synth_video as tsynth
-from slam_loop_closing_tpu_torch.utils.profiling import StageTimer
+from slam_loop_closing_tpu_torch.utils.profiling import StageTimer, annotate
 
 torch.set_num_threads(1)
 
@@ -78,6 +79,114 @@ def test_process_video_same_loops(slice_runs, grid):
     _, _, ref, got = slice_runs[grid]
     assert ref, "no loops in the reference run"
     assert as_tuples(got) == as_tuples(ref)
+
+
+ML_FRAMES, ML_GAP, ML_DY = 96, 16, 16.0   # test_loop_closing.py's fixture
+
+
+@pytest.fixture(scope="module")
+def multi_loop_runs():
+    """The multi-loop fixture of test_loop_closing.py (96 x 240x320, 800
+    points, seed 3, ORB-500, 2 levels, gap 16) through both packages'
+    process_video, with the truth mask and the pair geometry."""
+    frames, thetas, ys = tsynth.multi_loop_sequence(
+        num_frames=ML_FRAMES, h=240, w=320, num_points=800, seed=3,
+        distractor_dy=ML_DY)
+    cfg = dataclasses.replace(
+        jconfig.PipelineConfig(),
+        orb=jconfig.OrbConfig(num_features=500, num_levels=2),
+        loop=jconfig.LoopConfig(loop_threshold=0.15, min_loop_gap=ML_GAP,
+                                frame_skip=1),
+        ransac=jconfig.RansacConfig(num_hypotheses=256))
+    jsys = JaxLoopClosingSystem(cfg, max_frames=ML_FRAMES)
+    tsys = LoopClosingSystem(tconfig.PipelineConfig.from_json(cfg.to_json()),
+                             max_frames=ML_FRAMES, device="cpu")
+    ref, got = jsys.process_video(frames), tsys.process_video(frames)
+    dth = np.abs(thetas[:, None] - thetas[None, :])
+    dth = np.minimum(dth, 2 * np.pi - dth)
+    return dict(jsys=jsys, tsys=tsys, ref=ref, got=got, dth=dth,
+                dy=np.abs(ys[:, None] - ys[None, :]),
+                gt=tsynth.ground_truth_loop_pairs(thetas, ys, ML_GAP))
+
+
+def test_multi_loop_fixture_same_loops(multi_loop_runs):
+    """On the fixture that does not saturate (loops AND non-loops inside the
+    band): the loop set and the candidate order equal the JAX package's;
+    match counts within 1 on at most 1% of the loops and equal elsewhere (a
+    keypoint whose angle lies on a bin edge takes the other BRIEF bin, R2),
+    the similarity with them (1 / 500 features)."""
+    ref, got = multi_loop_runs["ref"], multi_loop_runs["got"]
+    pairs = [(c.current_frame_id, c.matched_frame_id) for c in got]
+    assert pairs == [(c.current_frame_id, c.matched_frame_id) for c in ref]
+    band = sum(max(0, q - ML_GAP + 1) for q in range(ML_FRAMES))
+    assert 100 < len(pairs) < band - 100
+    dn = np.array([g.num_matches - r.num_matches for g, r in zip(got, ref)])
+    assert np.abs(dn).max() <= 1 and np.mean(dn != 0) <= 0.01
+    ds = np.array([g.similarity_score - r.similarity_score
+                   for g, r in zip(got, ref)])
+    assert np.abs(ds).max() <= 1 / 500 + 1e-6
+    assert np.all(ds[dn == 0] == 0)
+
+
+def test_multi_loop_counts_on_the_jax_store_bitwise(multi_loop_runs):
+    """The JAX package's own descriptor store of the fixture through the
+    port's band counts: its count matrix, bitwise, with zero and non-zero
+    entries below and above the loop rule inside the band."""
+    jsys = multi_loop_runs["jsys"]
+    signed = np.array(jsys._db_signed)[:ML_FRAMES]
+    valid = np.array(jsys._db_valid)[:ML_FRAMES]
+    ref = np.asarray(jmatch.banded_pair_counts(
+        jnp.asarray(signed), jnp.asarray(valid), ML_GAP))
+    got = tmatch.banded_pair_counts(torch.from_numpy(signed),
+                                    torch.from_numpy(valid), ML_GAP).numpy()
+    np.testing.assert_array_equal(got, ref)
+    band = np.tril(np.ones_like(ref, bool), -ML_GAP)
+    assert (ref[band] < 50).sum() > 100 and (ref[band] > 150).sum() > 100
+
+
+def test_multi_loop_truth(multi_loop_runs):
+    """Against the ground truth: every true revisit pair is a loop; the
+    raw similarity rule also fires on the distractor pass (the same angles
+    at a fully separated height: hard negatives, as in the JAX package),
+    and the geometric verification of the Version-B loop search
+    (``sfm._verify_loop_scores``, the port's own draws) accepts every true
+    pair and none of the hard negatives."""
+    from slam_loop_closing_tpu_torch.models import sfm
+
+    tsys, got = multi_loop_runs["tsys"], multi_loop_runs["got"]
+    dth, dy, gt = (multi_loop_runs[k] for k in ("dth", "dy", "gt"))
+    pred = {(c.current_frame_id, c.matched_frame_id) for c in got}
+    true_pairs = set(zip(*(v.tolist() for v in np.nonzero(gt))))
+    hard = {p for p in pred if dy[p] >= ML_DY - 2.0 and dth[p] < 0.2}
+    assert len(true_pairs) >= 10 and true_pairs <= pred
+    assert len(hard) >= 10
+
+    sel = sorted(true_pairs | hard)
+    padded = sel + [sel[0]] * ((-len(sel)) % sfm.VERIFY_CHUNK)
+    cq, ct = torch.tensor(padded, dtype=torch.int32).T
+    cam = tsys.config.camera
+    norm = ((tsys.db.xy[:ML_FRAMES] - torch.tensor([cam.cx, cam.cy]))
+            / torch.tensor([cam.fx, cam.fy])).to(torch.float32)
+    scores, _ = sfm._verify_loop_scores(
+        tsys.db.packed[:ML_FRAMES], tsys.db.valid[:ML_FRAMES], norm, cq, ct,
+        torch.Generator().manual_seed(11),
+        torch.tensor((cam.fx + cam.fy) * 0.5, dtype=torch.float32),
+        tsys._radius, tsys._tau, 0.7, tsys.config.ransac)
+    verified = {p for p, s in zip(sel, scores.tolist())
+                if s[1] >= 25 and s[2] >= 15}
+    assert true_pairs <= verified
+    assert not verified & hard
+
+
+def test_annotate_names_a_profiler_range():
+    """``annotate`` (the JAX package's TraceAnnotation): a context manager
+    whose block shows under its name in a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with annotate("loop-scan"):
+            torch.ones(8).sum()
+    assert "loop-scan" in {e.key for e in prof.key_averages()}
 
 
 def test_process_video_uint8_frames_and_ids(orbit_frames):

@@ -569,3 +569,39 @@ def test_l2_wrappers_refuse_other_devices():
                              torch.zeros((2, 4, 8)), ones,
                              torch.zeros(1, dtype=torch.int32),
                              torch.zeros(1, dtype=torch.int32))
+
+
+def test_packed_to_signed_and_popcount_alias(rng):
+    packed = rng.integers(0, 2 ** 32, (6, 8), dtype=np.uint64).astype(np.uint32)
+    t = torch.from_numpy(packed.view(np.int32))
+    np.testing.assert_array_equal(
+        tdesc.packed_to_signed(t).numpy(),
+        np.asarray(jdesc.packed_to_signed(jnp.asarray(packed))))
+    assert tdesc.popcount_u32 is tdesc.popcount32
+    np.testing.assert_array_equal(
+        tdesc.popcount_u32(t).numpy(),
+        np.asarray(jdesc.popcount_u32(jnp.asarray(packed))))
+
+
+@pytest.mark.parametrize("t_block", [4, 16])
+def test_dense_pair_counts_equals_jax(band_inputs, t_block):
+    """The full [F, F] matrix, diagonal and upper triangle included, target
+    blocks that do and do not divide F: bitwise."""
+    signed, valid = band_inputs
+    ref = np.asarray(jmatch.dense_pair_counts(
+        jnp.asarray(signed), jnp.asarray(valid), 2.0, t_block))
+    got = tmatch.dense_pair_counts(torch.from_numpy(signed),
+                                   torch.from_numpy(valid), 2.0, t_block)
+    assert got.shape == (F, F) and got.dtype == torch.int32
+    assert np.triu(ref).any()
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_bits_to_packed_in_passes(rng, monkeypatch):
+    """Packing a few rows a pass (which bounds the int64 transient of a
+    sequence-scale store) gives the words of one pass."""
+    bits = torch.from_numpy(rng.integers(0, 2, (3, 11, 256)).astype(np.uint8))
+    whole = tdesc.bits_to_packed(bits)
+    monkeypatch.setattr(tdesc, "_PACK_ROWS", 7)
+    assert torch.equal(tdesc.bits_to_packed(bits), whole)
+    assert whole.shape == (3, 11, 8)

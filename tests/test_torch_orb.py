@@ -166,3 +166,92 @@ def test_front_end_descriptors_where_bins_agree(front_end_pair, grid):
     np.testing.assert_array_equal(
         got.descriptors.numpy()[same], ref.descriptors.view(np.int32)[same])
     assert not got.signed.numpy()[~valid].any()
+
+
+@pytest.fixture(scope="module")
+def one_frame():
+    """One 120x160 orbit frame, its sigma-2 blur, and 120 of the JAX
+    package's keypoints on it, a fifth marked invalid."""
+    from slam_loop_closing_tpu.ops import image as jimage
+
+    img = orbit_sequence(num_frames=2, h=120, w=160, seed=1)[0]
+    feats = jorb.detect_and_describe(
+        jnp.asarray(img), jconfig.OrbConfig(num_features=200, num_levels=2))
+    xy = np.array(feats.keypoints.xy)[:120]
+    valid = np.asarray(feats.keypoints.valid)[:120].copy()
+    valid[::5] = False
+    blurred = np.array(jimage.gaussian_blur(jnp.asarray(img), 2.0, 3))
+    return img, blurred, xy, valid
+
+
+def test_detect_and_describe_one_frame(one_frame):
+    """One frame through ``detect_and_describe``: the JAX package's
+    keypoints, angles within 1e-4 rad and descriptors wherever the
+    orientation bin agrees, and the batch function's first entry."""
+    img = one_frame[0]
+    ref = jorb.detect_and_describe(
+        jnp.asarray(img), jconfig.OrbConfig(num_features=200, num_levels=2))
+    tcfg = tconfig.OrbConfig(num_features=200, num_levels=2)
+    got = torb.detect_and_describe(torch.from_numpy(img), tcfg)
+    assert got.descriptors.shape == (200, 8) and got.signed.shape == (200, 256)
+    np.testing.assert_array_equal(got.keypoints.xy.numpy(),
+                                  np.asarray(ref.keypoints.xy))
+    np.testing.assert_array_equal(got.keypoints.valid.numpy(),
+                                  np.asarray(ref.keypoints.valid))
+    np.testing.assert_array_equal(got.keypoints.octave.numpy(),
+                                  np.asarray(ref.keypoints.octave))
+    np.testing.assert_allclose(got.keypoints.angle.numpy(),
+                               np.asarray(ref.keypoints.angle), atol=1e-4,
+                               rtol=0)
+    step = 2 * np.pi / tcfg.brief_bins
+    same_bin = (np.round(got.keypoints.angle.numpy() / step)
+                == np.round(np.asarray(ref.keypoints.angle) / step))
+    assert same_bin.mean() > 0.99
+    np.testing.assert_array_equal(
+        got.descriptors.numpy().view(np.uint32)[same_bin],
+        np.asarray(ref.descriptors)[same_bin])
+    batch = torb.detect_and_describe_batch(torch.from_numpy(img)[None], tcfg)
+    assert torch.equal(batch.descriptors[0], got.descriptors)
+
+
+def test_orientation_gather_form(one_frame):
+    """Moments over the clamped circular window: within 1e-4 rad of the JAX
+    package (sums in another order), 0 on invalid keypoints."""
+    img, _, xy, valid = one_frame
+    xy = np.concatenate([xy, [[0.0, 0.0], [159.0, 119.0]]]).astype(np.float32)
+    valid = np.concatenate([valid, [True, True]])     # clamped windows
+    ref = jorb.orientation(jnp.asarray(img), jnp.asarray(xy),
+                           jnp.asarray(valid))
+    got = torb.orientation(torch.from_numpy(img), torch.from_numpy(xy),
+                           torch.from_numpy(valid))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4, rtol=0)
+    assert not got.numpy()[~valid].any()
+
+
+def test_exact_rotation_brief_bits_equal(one_frame):
+    """``brief_descriptors`` (image-wide bilinear samples) and
+    ``brief_from_patches`` (patch-local) at the same angles: the JAX
+    package's bits, zero rows for invalid keypoints."""
+    img, blurred, xy, valid = one_frame
+    rng = np.random.default_rng(2)
+    angle = rng.uniform(-np.pi, np.pi, len(xy)).astype(np.float32)
+    pattern = jorb.make_pattern(0)
+    t = torch.from_numpy
+    ref = np.asarray(jorb.brief_descriptors(
+        jnp.asarray(blurred), jnp.asarray(xy), jnp.asarray(angle),
+        jnp.asarray(valid), jnp.asarray(pattern)))
+    got = torb.brief_descriptors(t(blurred), t(xy), t(angle), t(valid),
+                                 t(pattern)).numpy()
+    assert got.dtype == np.uint8 and ref.any()
+    np.testing.assert_array_equal(got, ref)
+    assert not got[~valid].any()
+
+    patches, centers = jorb.extract_patches(jnp.asarray(blurred),
+                                            jnp.asarray(xy))
+    ref = np.asarray(jorb.brief_from_patches(
+        patches, centers, jnp.asarray(angle), jnp.asarray(valid),
+        jnp.asarray(pattern)))
+    tp, tc = torb.extract_patches(t(blurred)[None], t(xy)[None])
+    got = torb.brief_from_patches(tp[0], tc[0], t(angle), t(valid),
+                                  t(pattern)).numpy()
+    np.testing.assert_array_equal(got, ref)
