@@ -11,7 +11,10 @@ each printed with its result and seconds on its own line:
    ptxas register/spill lines are printed);
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it (bitwise for integer outputs, the FAST
-   score and the blur), with CUDA-event times of both;
+   score and the blur), with CUDA-event times of both; kernel A also on one
+   1080p frame (the live path), on a 540x960 crop's levels (ORB SfM and
+   multi-video) and on frames narrower than its 64 x 16 tile, with the
+   share of pixels that pass its compass pre-test;
 4. slice process_video: ``LoopClosingSystem(device="cuda").process_video``
    on 96 frames of 1080p synthetic closed-loop video at ORB-2000 with one
    keypoint per 8-px cell — kernels A, B and C must launch, the orbit's
@@ -64,7 +67,12 @@ each printed with its result and seconds on its own line:
     ``SfMPipeline._frontend`` builds from the 96 frames (valid rows first,
     cut to the count bucket) at the keyframe step's pair and the loop
     search's 1,176 pairs at gap 48, d1 and d2 within 1e-5 with idx equal
-    away from near-ties; as extra checks, G on 4,000-row stores of 48
+    away from near-ties, beside cuBLAS's float32 ``bmm`` of the cross term
+    alone on the same pairs (a yardstick of the dot work); the same store
+    with its rows shuffled in every frame (valid rows not packed first),
+    and a 1,001-row store of integer-valued descriptors (holes, an extent
+    below the row count, empty query and target frames) at both pair
+    lists, bitwise; as extra checks, G on 4,000-row stores of 48
     frames (300 pairs at gap 24): bitwise on integer-valued descriptors
     with invalid rows, an all-invalid keyframe and forced ties, and within
     1e-5 on the unpacked SIFT descriptors; CUDA-event times of all;
@@ -129,19 +137,27 @@ each printed with its result and seconds on its own line:
 
 Synthetic frames are rendered by a pool of worker processes (numpy only).
 Each main path runs with the launch counts set to 0 just before it and read
-just after. Any failure raises (exit code 1). The line before the last is
-the kernels' JSON record: each kernel's launches on the main paths, its
-error against the plain version, its CUDA-event time and the plain
-version's, and its bound (the larger of the bytes it must move over 3.35
-TB/s and the operations it does over the H100's peak for their type: the
-b1 tensor-core rate for kernels C, K5 and I (2 x 256 one-bit operations a
-row pair; NVIDIA publishes no b1 rate for this card, so the peak is the
-instruction rate of ``mma.sync.m16n8k256.b1`` that
-``csrc/probes/probe_hamming_forms.py`` measured), int8 tensor-core for
-kernels D and F, whose +-1 form is an int8 product, and float32 SIMT
-otherwise), all from this run's inputs; ``library_ms`` is null
-(no single PyTorch call computes the kernel's function) except for kernel
-I, where it is the matmul-and-``amax`` form at 8192 x 8192. The last line is
+just after; process_video, process_stream (8 frames), both SfM runs, config
+2 (front-end + dense) and the multi-video path also run once under the
+profiler, which gives each kernel's summed device time over that path (the
+line before the kernels' JSON). Any failure raises (exit code 1). The line
+before the last is the kernels' JSON record: each kernel's launches on the
+main paths, its error against the plain version, its CUDA-event time and
+the plain version's, and its bound (the larger of the bytes it must move
+over 3.35 TB/s and the operations it does over the H100's rate for their
+type, all from this run's inputs). The rates: the b1 tensor-core rate for
+kernels C, K5 and I (2 x 256 one-bit operations a row pair; NVIDIA
+publishes no b1 rate for this card, so the peak is the instruction rate of
+``mma.sync.m16n8k256.b1`` that ``csrc/probes/probe_hamming_forms.py``
+measured); int8 tensor-core for kernels D and F, whose +-1 form is an int8
+product; for kernel A the min/max and float32 instructions it issues, each
+at its pipe's instruction rate (FMNMX at half the FFMA rate; the rates
+that ``csrc/probes/probe_rates.py`` measures agree), the arc extrema
+counted only for the pixels that pass the compass pre-test; for kernel G
+three tf32 products a float32 one (3xTF32) at the card's dense tf32 rate;
+float32 SIMT otherwise. ``library_ms`` is null (no single
+PyTorch call computes the kernel's function) except for kernel I, where it
+is the matmul-and-``amax`` form at 8192 x 8192. The last line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX; run
 without the package beside it, it fails at the package's import.
 """
@@ -227,14 +243,36 @@ CLI_FRAMES, CLI_H, CLI_W = 32, 144, 192   # the tests' orbit fixture
 ML_FRAMES, ML_H, ML_W, ML_POINTS, ML_SEED = 96, 240, 320, 800, 3
 ML_FEATURES, ML_GAP, ML_DY = 500, 16, 16.0
 RENDER_WORKERS = 8
-# bounds: the H100 SXM's published peaks
+# bounds: the H100 SXM's published peaks (NVIDIA's H100 datasheet; the
+# dense rates, half the "with sparsity" ones), and a rate that NVIDIA does
+# not publish as measured on the card (NVIDIA H100 80GB HBM3, 700 W)
 HBM_BYTES_PER_S = 3.35e12
+SMS, BOOST_HZ = 132, 1.98e9
 # "b1": one-bit and-popc on the tensor cores. No published rate: 10.1e15 is
 # the instruction rate of mma.sync.m16n8k256.b1 alone, 8 and 16 warps an SM,
-# measured by csrc/probes/probe_hamming_forms.py (NVIDIA H100 80GB HBM3,
-# 700 W): 8.0x the rate it measures for mma.sync.m16n8k32.s8.
-PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12, "b1": 10.1e15}
-FAST_OPS_PER_PX = 325   # kernel A: 16 arcs x 16 min/max, NMS, 2 x 13 blur
+# measured by csrc/probes/probe_hamming_forms.py: 8.0x the rate it measures
+# for mma.sync.m16n8k32.s8.
+# "tf32": 495 TFLOP/s dense, the card's rate (reached by wgmma; the
+# mma.sync.m16n8k8 that kernel G issues runs 270-275 at 8-32 warps an SM in
+# csrc/probes/probe_rates.py, so G's bound is not reachable in its form).
+# "ffma": float32 multiply, add or FMA instructions, 128 a clock an SM at
+# the boost clock (the 67 TFLOP/s counts an FMA as two flops), and "fmnmx":
+# float min/max, 64 a clock an SM (the CUDA C++ Programming Guide's
+# throughput table, compute capability 9.0); csrc/probes/probe_rates.py
+# measures 29.3-29.8 and 16.3-16.5 T/s, the same half ratio at the clock
+# the card holds under load.
+PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12, "b1": 10.1e15,
+                  "tf32": 495e12, "ffma": 128 * SMS * BOOST_HZ,
+                  "fmnmx": 64 * SMS * BOOST_HZ}
+# kernel A's instructions a pixel, by the pipe they issue on: every pixel
+# pays the compass pre-test (8 compares, counted on the min/max pipe, and 16
+# subtracts), the NMS (9 maxima) and the blur (2 x (7 multiplies + 6
+# adds)); a pixel that passes the pre-test adds the arc extrema by doubling
+# (2 x 3 x 16 min/max for the windows of 2, 4 and 8, 2 x 16 for the
+# 9-windows, 2 x 15 for the best and worst arcs, 2 maxima for the score)
+# and 4 subtracts
+FAST_MINMAX_PER_PX, FAST_F32_PER_PX = 17, 42
+FAST_MINMAX_PER_PASS, FAST_F32_PER_PASS = 160, 4
 GATE_OPS_PER_PX = 110   # kernel H's gates per response pixel: 27 DoG
                         # differences, 52 min/max, the edge test
 
@@ -243,8 +281,14 @@ def bound(nbytes: float, ops: float, kind: str) -> dict:
     """The least time of work that moves ``nbytes`` (each input read once,
     each output written once) and does ``ops`` operations of ``kind``:
     ``bound_ms``, ``bound_by`` and a null ``library_ms``."""
+    return bound_pipes(nbytes, {kind: ops})
+
+
+def bound_pipes(nbytes: float, ops: dict) -> dict:
+    """:func:`bound` of work that issues ``ops[kind]`` operations on each of
+    several pipes, which run side by side: the slowest pipe counts."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    t_ops = max(n / PEAK_OPS_PER_S[k] * 1e3 for k, n in ops.items())
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=None)
@@ -255,6 +299,49 @@ def pair_work(nv_q: np.ndarray, nv_t: np.ndarray, qidx, tidx) -> float:
     from the valid row counts of each store's frames."""
     return float(np.sum(nv_q[np.asarray(qidx)].astype(np.float64)
                         * nv_t[np.asarray(tidx)]))
+
+
+# the port's CUDA kernels by the name the profiler reports, to the wrapper
+# that launches them (kernel C and K5 share one kernel; so do H's levels
+# and gates, and the two passes of I and of G)
+KERNEL_NAMES = {"fast_score_nms_blur_kernel": "fast_score_nms_blur",
+                "extract_patches_kernel": "extract_patches",
+                "band_counts_kernel": "band_count_tiles / pair_counts",
+                "hamming_nn_kernel": "hamming_nn",
+                "hamming_knn2_kernel": "hamming_knn2",
+                "hamming_d1_kernel": "hamming_d1",
+                "min_over_splits_kernel": "hamming_d1",
+                "motion_support_kernel": "motion_support",
+                "l2_knn2_kernel": "l2_knn2",
+                "merge_splits_kernel": "l2_knn2",
+                "blur_level_kernel": "gauss_stack_resp",
+                "gates_kernel": "gauss_stack_resp"}
+def kernel_device_ms(prof, path: str, device_ms: dict) -> None:
+    """Each kernel's summed device time (ms) in a profile of one run of a
+    main path, by wrapper name: kept in ``device_ms[path]`` and printed."""
+    out = collections.Counter()
+    for e in prof.key_averages():
+        for fn, name in KERNEL_NAMES.items():
+            if fn in e.key:
+                out[name] += getattr(e, "self_device_time_total", 0.0) / 1e3
+    device_ms[path] = {k: round(v, 4) for k, v in sorted(out.items())}
+    print(f"  device ms by kernel over {path} (profiler): {device_ms[path]}",
+          flush=True)
+
+
+def profiled(fn):
+    """``fn()`` under the profiler, device activity only (with the CPU's op
+    events as well, the sum of self device times counts each kernel twice),
+    synchronized: (its result, the profile, its wall seconds)."""
+    import torch
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    return out, prof, wall
 
 
 def phase(name: str, t0: float, result: str) -> None:
@@ -353,10 +440,11 @@ def check_kernels(frames_dev, dev) -> dict:
     t0 = time.perf_counter()
     levels = image_ops.pyramid(image_ops.ship_frames(frames_dev[:8], dev),
                                4, 1.2)
-    err, ulp, ms, plain_ms, px = 0.0, 0, 0.0, 0.0, 0
+    err, ulp, ms, plain_ms, px, passing = 0.0, 0, 0.0, 0.0, 0, 0
     for lv in levels:
         lv = lv.contiguous()
         px += lv.numel()
+        passing += int(ck.fast_compass_pass(lv, thr).sum())
         score, blur = ck.fast_score_nms_blur(lv, thr)
         ref_s, ref_b = ck.fast_score_nms_blur_plain(lv, thr)
         if not torch.equal(score, ref_s):
@@ -367,14 +455,36 @@ def check_kernels(frames_dev, dev) -> dict:
         plain_ms += cuda_ms(lambda: ck.fast_score_nms_blur_plain(lv, thr), 3)
     if ulp > 0:
         raise AssertionError(f"blur differs from the plain version by {ulp} ulp")
-    # one frame read, the score and the blur written
+    # one frame at each level (the live path), the levels of a 540x960 crop
+    # (ORB SfM and multi-video), frames narrower than one 64 x 16 tile
+    crop = image_ops.pyramid(image_ops.ship_frames(
+        frames_dev[:8, :SFM_H, :SFM_W], dev), 4, 1.2)
+    extra = ([lv[:1].contiguous() for lv in levels]
+             + [lv.contiguous() for lv in crop]
+             + [levels[0][:2, :21, :50].contiguous(),
+                levels[3][:2, 100:140, 200:263].contiguous()])
+    for x in extra:
+        check_bitwise(f"kernel A at {tuple(x.shape)}",
+                      ck.fast_score_nms_blur(x, thr),
+                      ck.fast_score_nms_blur_plain(x, thr))
+    one_ms = sum(cuda_ms(lambda: ck.fast_score_nms_blur(x, thr), 20)
+                 for x in extra[:4])
+    # one frame read, the score and the blur written; the instructions by
+    # pipe, the arc extrema only where this run's pixels pass the pre-test
     records["fast_score_nms_blur"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        **bound(12 * px, FAST_OPS_PER_PX * px, "f32"))
+        **bound_pipes(12 * px, {
+            "fmnmx": FAST_MINMAX_PER_PX * px + FAST_MINMAX_PER_PASS * passing,
+            "ffma": FAST_F32_PER_PX * px + FAST_F32_PER_PASS * passing}))
     phase("kernel A fast_score_nms_blur", t0,
           f"4 levels x 8 frames {[tuple(lv.shape[1:]) for lv in levels]}: "
           f"score bitwise, blur {ulp} ulp; kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms")
+          f"{plain_ms:.3f} ms, bound "
+          f"{records['fast_score_nms_blur']['bound_ms']:.4f} ms "
+          f"({records['fast_score_nms_blur']['bound_by']}); "
+          f"{passing / px:.2%} of the pixels pass the compass pre-test; "
+          f"bitwise also at {[tuple(x.shape) for x in extra]}; one frame "
+          f"at the 4 levels {one_ms:.4f} ms")
 
     # B: 2000 keypoints per frame on all 96 blurred 1080p frames, some at
     # the borders (clamped windows)
@@ -539,7 +649,7 @@ def check_live_kernels(dev) -> dict:
     return records
 
 
-def run_slice(frames_dev, dev):
+def run_slice(frames_dev, dev, device_ms: dict):
     """The batched main path at full width; returns the launch counts of
     the timed run and its loops."""
     from slam_loop_closing_tpu_torch.models.loop_closing import \
@@ -573,6 +683,9 @@ def run_slice(frames_dev, dev):
           f"{FRAMES} x {H}x{W} ORB-{NUM_FEATURES} grid 8: {len(loops)} loops,"
           f" closing loop found; warm run {wall * 1e3:.1f} ms = "
           f"{timer.frames_per_sec(FRAMES):.1f} frames/s; launches {launches}")
+    _, prof, _ = profiled(lambda: LoopClosingSystem(
+        cfg, max_frames=FRAMES, device=dev).process_video(frames_dev))
+    kernel_device_ms(prof, "process_video", device_ms)
     return launches, loops
 
 
@@ -601,7 +714,8 @@ def count_syncs(system, frames_u8):
     return per_frame, sources
 
 
-def run_stream(frames_u8: np.ndarray, dev, video_loops) -> dict:
+def run_stream(frames_u8: np.ndarray, dev, video_loops,
+               device_ms: dict) -> dict:
     """The live main path at full width: process_stream over host uint8
     frames. Returns the launch counts of the timed pass."""
     import torch
@@ -691,21 +805,16 @@ def run_stream(frames_u8: np.ndarray, dev, video_loops) -> dict:
           "synchronized: " + ", ".join(f"{k} {v:.2f} ms"
                                        for k, v in split.items()))
 
-    # device idle share of the live path: 8 more frames under the profiler,
-    # device activity only (with the CPU's op events as well, the sum of
-    # self device times counts each kernel twice)
+    # device idle share of the live path: 8 more frames under the profiler
     t0 = time.perf_counter()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t_w = time.perf_counter()
-        for _ in system.process_stream(frames_u8[:8]):
-            pass
-        wall = time.perf_counter() - t_w
+    _, prof, wall = profiled(
+        lambda: list(system.process_stream(frames_u8[:8])))
     busy = sum(getattr(e, "self_device_time_total", 0.0)
                for e in prof.key_averages()) / 1e6
     phase("slice idle share", t0, f"8 frames in {wall * 1e3:.1f} ms, device "
           f"busy {busy * 1e3:.1f} ms (profiler, kernel time): idle share "
           f"{max(0.0, 1.0 - busy / wall):.0%}")
+    kernel_device_ms(prof, "process_stream, 8 frames", device_ms)
     return launches
 
 
@@ -930,7 +1039,18 @@ def count_syncs_in(fn):
         f"{Path(w.filename).name}:{w.lineno}" for w in new)
 
 
-def run_sfm(frames: np.ndarray, cfg, label: str, kernels, dev) -> dict:
+def sfm_pipeline(cfg, n: int, dev):
+    """A resident ``SfMPipeline`` of ``n`` keyframe slots with the map sizes
+    of bench_reconstruct.py, the keyframe pass as a scan, silent."""
+    from slam_loop_closing_tpu_torch.models import sfm
+
+    return sfm.SfMPipeline(cfg, max_keyframes=n, max_points=65536,
+                           max_obs=262144, log=lambda *a: None,
+                           use_scan=True, device=dev)
+
+
+def run_sfm(frames: np.ndarray, cfg, label: str, kernels, dev,
+            device_ms: dict) -> dict:
     """A Version-B main path at full width on host uint8 ``frames``;
     returns the launch counts of the timed run from host memory."""
     import tempfile
@@ -945,9 +1065,7 @@ def run_sfm(frames: np.ndarray, cfg, label: str, kernels, dev) -> dict:
     n, h, w = frames.shape
 
     def build():
-        return sfm.SfMPipeline(cfg, max_keyframes=n, max_points=65536,
-                               max_obs=262144, log=lambda *a: None,
-                               use_scan=True, device=dev)
+        return sfm_pipeline(cfg, n, dev)
 
     # warm-up, stage by stage; the keyframe pass counts its host syncs
     pipe = build()
@@ -1050,22 +1168,17 @@ def run_sfm(frames: np.ndarray, cfg, label: str, kernels, dev) -> dict:
           "ms, each stage synchronized: "
           + ", ".join(f"{k.strip()} {v:.1f}" for k, v in split.items()))
 
-    # device idle share of one resident run; device activity only (see
-    # run_stream; with the CPU's op events the trace also takes minutes to
-    # read)
+    # device idle share of one resident run; device activity only (with
+    # the CPU's op events the trace also takes minutes to read)
     t0 = time.perf_counter()
     pipe = build()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t_w = time.perf_counter()
-        pipe.run(frames_dev, write_obj=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t_w
+    _, prof, wall = profiled(lambda: pipe.run(frames_dev, write_obj=False))
     busy = sum(getattr(e, "self_device_time_total", 0.0)
                for e in prof.key_averages()) / 1e6
     phase(f"slice SfM {label} idle share", t0, f"one resident run "
           f"{wall:.3f} s under the profiler, device busy {busy:.3f} s "
           f"(kernel time): idle share {max(0.0, 1.0 - busy / wall):.0%}")
+    kernel_device_ms(prof, f"SfMPipeline.run {label}", device_ms)
     return launches
 
 
@@ -1203,6 +1316,29 @@ def check_l2_store(label: str, desc, vd, shapes) -> tuple[float, dict]:
     return err, times
 
 
+def bmm_cross_ms(desc, qidx, tidx, chunk: int = 64) -> float:
+    """CUDA-event milliseconds of cuBLAS's float32 ``torch.bmm`` of the
+    cross term q.t alone over the pairs (``qidx``, ``tidx``) of ``desc``
+    [F, N, 128], a chunk of pairs a call, operands gathered beforehand: a
+    yardstick of kernel G's dot work (it takes no top-2)."""
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 matmul must not run in TF32 here")
+    q = [desc.index_select(0, qidx[s:s + chunk].long())
+         for s in range(0, qidx.shape[0], chunk)]
+    t = [desc.index_select(0, tidx[s:s + chunk].long()).transpose(1, 2)
+         for s in range(0, tidx.shape[0], chunk)]
+    out = torch.empty((chunk, desc.shape[1], desc.shape[1]),
+                      device=desc.device)
+
+    def run():
+        for a, b in zip(q, t):
+            torch.bmm(a, b, out=out[:a.shape[0]])
+
+    return cuda_ms(run, 3)
+
+
 def check_sift_kernels(frames: np.ndarray, dev) -> dict:
     """Kernel H on octave 0 of a chunk of 1080p frames and on a small
     octave, both modes, bitwise; kernel B on that octave's gradient maps
@@ -1317,11 +1453,14 @@ def check_sift_kernels(frames: np.ndarray, dev) -> dict:
                                  ("loop search", (loop_q, loop_t))))
     ms, plain_ms = times["loop search"]
     kf, nb = desc.shape[:2]
-    # 2 x 128 float32 operations per valid row pair; the store read once
+    # 2 x 128 float32 operations per valid row pair, each three tf32
+    # products on the tensor cores (3xTF32); the store read once
     records["l2_knn2"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         **bound(kf * nb * (128 * 4 + 1) + 12 * len(pairs) * nb,
-                256 * pair_work(nv, nv, *zip(*pairs)), "f32"))
+                3 * 256 * pair_work(nv, nv, *zip(*pairs)), "tf32"))
+    yard_ms = bmm_cross_ms(desc[:, :int(ck.frame_extents(vd).max())], loop_q,
+                           loop_t)
     phase("kernel G l2_knn2, pipeline store", t0,
           f"{kf} x {nb} rows (the front-end's valid-first store at its count "
           f"bucket; {int(nv.min())}-{int(nv.max())} valid a frame, mean "
@@ -1330,8 +1469,44 @@ def check_sift_kernels(frames: np.ndarray, dev) -> dict:
           f"{ms:.3f} ms, plain {times['keyframe step'][1]:.3f} / "
           f"{plain_ms:.3f} ms (1 pair / {len(pairs)} pairs at gap {gap}), "
           f"bound {records['l2_knn2']['bound_ms']:.3f} ms "
-          f"({records['l2_knn2']['bound_by']})")
-    del desc, vd
+          f"({records['l2_knn2']['bound_by']}); yardstick: cuBLAS float32 "
+          f"bmm of the cross term alone on the same pairs (rows cut at the "
+          f"largest extent, no top-2) {yard_ms:.3f} ms")
+
+    # the same store with its rows shuffled in every frame (valid rows not
+    # packed first, extents near the row count), and a 1,001-row store of
+    # integer-valued descriptors (rows no multiple of the kernel's tiles;
+    # holes, an extent below the row count, all-invalid query and target
+    # frames), at the same pair lists
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    perm = torch.argsort(torch.rand((kf, nb), generator=gen), dim=1).to(dev)
+    desc_s = torch.gather(desc, 1, perm[..., None].expand(-1, -1, 128))
+    vd_s = torch.gather(vd, 1, perm)
+    err_s, times_s = check_l2_store("the shuffled SIFT store", desc_s, vd_s,
+                                    (("keyframe step", step),
+                                     ("loop search", (loop_q, loop_t))))
+    del desc_s, vd_s, perm
+    rng = np.random.default_rng(5)
+    d_int = torch.from_numpy(rng.integers(0, 16, (kf, 1001, 128)).astype(
+        np.float32)).to(dev)
+    v_np = rng.random((kf, 1001)) < 0.9
+    v_np[3, 600:] = False
+    v_np[10] = v_np[60] = False
+    v_int = torch.from_numpy(v_np).to(dev)
+    for name, (qi, ti) in (("keyframe step", step),
+                           ("loop search", (loop_q, loop_t))):
+        check_bitwise(f"l2_knn2 on a 1,001-row integer store ({name})",
+                      ck.l2_knn2(d_int, v_int, d_int, v_int, qi, ti),
+                      ck.l2_knn2_plain(d_int, v_int, d_int, v_int, qi, ti))
+    phase("kernel G l2_knn2, shuffled and 1,001-row stores", t0,
+          f"the pipeline store with its rows shuffled in every frame: max "
+          f"|d1, d2| difference {err_s:.2e}, idx equal away from ties; "
+          f"kernel {times_s['keyframe step'][0]:.3f} / "
+          f"{times_s['loop search'][0]:.3f} ms; a {kf} x 1,001-row integer "
+          f"store (holes, an extent of 600, two empty frames): bitwise at 1 "
+          f"pair and at {len(pairs)} pairs")
+    del d_int, v_int, desc, vd
     torch.cuda.empty_cache()
 
     # extra checks on 4,000-row stores: integer-valued descriptors (bitwise,
@@ -1773,7 +1948,25 @@ def config2_memory(frames_dev, cfg, pattern, signed, valid, dev) -> None:
           f"{C2_PAIRS_PER_CALL * valid.shape[1] * 4 / gb:.2f})")
 
 
-def run_config2(frames_u8: np.ndarray, bench: dict, dev):
+def config2_front_end(frames_dev, cfg, pattern, dev):
+    """BASELINE config 2's front-end over the resident uint8 frames in
+    batches of C2_BATCH: the store's (signed descriptors, validity)."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.ops import image as image_ops
+    from slam_loop_closing_tpu_torch.ops import orb
+
+    s_chunks, v_chunks = [], []
+    for s in range(0, frames_dev.shape[0], C2_BATCH):
+        feats = orb.detect_and_describe_batch(
+            image_ops.ship_frames(frames_dev[s:s + C2_BATCH], dev), cfg,
+            pattern)
+        s_chunks.append(feats.signed)
+        v_chunks.append(feats.keypoints.valid)
+    return torch.cat(s_chunks), torch.cat(v_chunks)
+
+
+def run_config2(frames_u8: np.ndarray, bench: dict, dev, device_ms: dict):
     """BASELINE config 2, the dense all-pairs main path at full width:
     returns (launch counts of the timed run, kernel I's record)."""
     import torch
@@ -1792,14 +1985,7 @@ def run_config2(frames_u8: np.ndarray, bench: dict, dev):
     pattern = orb.brief_matrices(cfg, dev)
 
     def front_end():
-        s_chunks, v_chunks = [], []
-        for s in range(0, b, C2_BATCH):
-            feats = orb.detect_and_describe_batch(
-                image_ops.ship_frames(frames_dev[s:s + C2_BATCH], dev), cfg,
-                pattern)
-            s_chunks.append(feats.signed)
-            v_chunks.append(feats.keypoints.valid)
-        return torch.cat(s_chunks), torch.cat(v_chunks)
+        return config2_front_end(frames_dev, cfg, pattern, dev)
 
     # warm-up pass: its store feeds kernel I's check and the dense warm-up
     signed, valid = front_end()
@@ -1884,6 +2070,9 @@ def run_config2(frames_u8: np.ndarray, bench: dict, dev):
           f"loop found; peak device memory {peak_gb:.2f} GB; launches "
           f"{launches}")
 
+    _, prof, _ = profiled(lambda: matching.dense_pair_counts_chunked(
+        *front_end(), min_gap=1, pairs_per_call=C2_PAIRS_PER_CALL))
+    kernel_device_ms(prof, "config 2, front-end + dense", device_ms)
     config2_memory(frames_dev, cfg, pattern, signed, valid, dev)
     del frames_dev
 
@@ -1906,7 +2095,7 @@ def run_config2(frames_u8: np.ndarray, bench: dict, dev):
     return launches, record
 
 
-def run_multivideo(videos_u8: np.ndarray, dev) -> dict:
+def run_multivideo(videos_u8: np.ndarray, dev, device_ms: dict) -> dict:
     """bench_multivideo.py's main path; returns the timed run's launches."""
     import torch
 
@@ -1973,6 +2162,9 @@ def run_multivideo(videos_u8: np.ndarray, dev) -> dict:
           f"{[len(x) for x in loops]}, each equal to process_video alone; "
           f"warm run {t_run * 1e3:.1f} ms = {v * b / t_run:.1f} frames/s; "
           f"launches {launches}")
+    _, prof, _ = profiled(lambda: LoopClosingSystem.process_videos_batched(
+        videos_u8, cfg, device=dev))
+    kernel_device_ms(prof, "process_videos_batched", device_ms)
     return launches
 
 
@@ -2241,31 +2433,33 @@ def main() -> int:
           f"{SIFT_W}, {C2_FRAMES} x {C2_H}x{C2_W}, {MV_VIDEOS} x {MV_FRAMES} "
           f"x {MV_H}x{MV_W}, {CLI_FRAMES} x {CLI_H}x{CLI_W})")
 
-    records = check_kernels(frames_dev, dev)
-    video_launches, video_loops = run_slice(frames_dev, dev)
-    stream_launches = run_stream(frames, dev, video_loops)
+    records, device_ms = check_kernels(frames_dev, dev), {}
+    video_launches, video_loops = run_slice(frames_dev, dev, device_ms)
+    stream_launches = run_stream(frames, dev, video_loops, device_ms)
     check_front_end_agreement(frames_dev, dev)
     check_cpu_agreement(dev)
     del frames, frames_dev
     torch.cuda.empty_cache()
     records.update(check_sfm_kernels(dev))
     sfm_launches = run_sfm(sfm_frames, sfm_config(),
-                           f"ORB-{SFM_FEATURES} grid 8", SFM_KERNELS, dev)
+                           f"ORB-{SFM_FEATURES} grid 8", SFM_KERNELS, dev,
+                           device_ms)
     check_sfm_agreement(dev)
     torch.cuda.empty_cache()
 
     records.update(check_sift_kernels(sift_frames, dev))
     sift_launches = run_sfm(sift_frames, sfm_config("sift"),
-                            f"SIFT-{SIFT_FEATURES}", SIFT_KERNELS, dev)
+                            f"SIFT-{SIFT_FEATURES}", SIFT_KERNELS, dev,
+                            device_ms)
     del sift_frames, sfm_frames
     check_sift_agreement(dev)
     torch.cuda.empty_cache()
 
     c2_launches, records["hamming_d1"] = run_config2(
-        c2_frames, check_d1_kernel(dev), dev)
+        c2_frames, check_d1_kernel(dev), dev, device_ms)
     del c2_frames
     torch.cuda.empty_cache()
-    mv_launches = run_multivideo(np.stack(videos), dev)
+    mv_launches = run_multivideo(np.stack(videos), dev, device_ms)
     run_cli(cli_frames, dev)
     ml_launches = run_multi_loop(dev)
 
@@ -2277,6 +2471,7 @@ def main() -> int:
                     launches=sum(path[k] for path in paths),
                     **records[k])
                for k in ck.LAUNCHES]
+    print(json.dumps({"device_ms_by_path": device_ms}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -37,6 +37,7 @@ packed words.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -83,6 +84,13 @@ def _launch(name: str, device: torch.device, *args) -> None:
         LAUNCHES[name] += 1
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (asked once: the
+    keyframe step launches kernel G at every frame)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
@@ -102,11 +110,19 @@ def fast_score_nms_blur_plain(imgs: torch.Tensor,
             image_ops.gaussian_blur(imgs, blur_sigma, blur_radius))
 
 
+@functools.cache
+def _blur_taps(sigma: float, radius: int):
+    """The blur's float32 taps as a C array (computed once per setting: the
+    live path launches kernel A four times a frame)."""
+    taps = image_ops.gaussian_kernel1d(sigma, radius).tolist()
+    return (ctypes.c_float * len(taps))(*taps)
+
+
 def fast_score_nms_blur(imgs: torch.Tensor, threshold: float = 20.0 / 255.0,
                         blur_sigma: float = 2.0, blur_radius: int = 3):
     """:func:`fast_score_nms_blur_plain` of ``[B, H, W]`` float32 frames, as
-    one kernel on a CUDA tensor (blur radius 3 only). The score and the NMS
-    are bitwise equal to the plain version; so is the blur (no FMA
+    one kernel launch on a CUDA tensor (blur radius 3 only). The score and
+    the NMS are bitwise equal to the plain version; so is the blur (no FMA
     contraction, same tap order)."""
     _require(imgs.dim() == 3 and imgs.dtype == torch.float32,
              "imgs must be [B, H, W] float32")
@@ -116,15 +132,37 @@ def fast_score_nms_blur(imgs: torch.Tensor, threshold: float = 20.0 / 255.0,
     b, h, w = imgs.shape
     _require(blur_radius == 3, "the CUDA blur has radius 3")
     _require(min(h, w) > blur_radius, "frame smaller than the blur halo")
+    _require(b <= 65535, "at most 65535 frames per launch")
     imgs = imgs.contiguous()
-    taps = image_ops.gaussian_kernel1d(blur_sigma, blur_radius).tolist()
-    score_tmp = torch.empty_like(imgs)
     score = torch.empty_like(imgs)
     blurred = torch.empty_like(imgs)
     _launch("fast_score_nms_blur", imgs.device, imgs.data_ptr(),
-            score_tmp.data_ptr(), score.data_ptr(), blurred.data_ptr(),
-            (ctypes.c_float * len(taps))(*taps), b, h, w, threshold)
+            score.data_ptr(), blurred.data_ptr(),
+            _blur_taps(float(blur_sigma), blur_radius), b, h, w, threshold)
     return score, blurred
+
+
+def fast_compass_pass(imgs: torch.Tensor,
+                      threshold: float = 20.0 / 255.0) -> torch.Tensor:
+    """[B, H, W] bool: the pixels of ``[B, H, W]`` float32 frames that pass
+    kernel A's exact compass pre-test, and so need the arc extrema. A pixel
+    more than 3 px inside the frame passes when two neighbouring samples of
+    the compass (ring samples 0, 4, 8, 12: 3 px up, right, down, left) both
+    pass the bright test ``(r - c) - t > 0``, or both the dark test
+    ``(c - r) - t > 0``, in float32. Every 9-arc of the ring holds such a
+    pair, so where this is False the FAST score is exactly 0."""
+    h, w = imgs.shape[-2:]
+    p = torch.nn.functional.pad(imgs, (3, 3, 3, 3))
+    compass = torch.stack([p[..., 3 + dy:3 + dy + h, 3 + dx:3 + dx + w]
+                           for dy, dx in ((-3, 0), (0, 3), (3, 0), (0, -3))])
+    bright = (compass - imgs[None] - threshold) > 0.0
+    dark = (imgs[None] - compass - threshold) > 0.0
+
+    def pair(m):
+        return torch.any(m & torch.roll(m, -1, dims=0), dim=0)
+
+    return (pair(bright) | pair(dark)) & fast_ops._interior(h, w, 3,
+                                                             imgs.device)
 
 
 # --------------------------------------------------------------------------
@@ -479,9 +517,7 @@ def hamming_d1_pairs(packed_q: torch.Tensor, packed_t: torch.Tensor,
     tidx = tidx.to(torch.int32).contiguous()
     p_cnt, n_q, n_t = qidx.shape[0], packed_q.shape[1], packed_t.shape[1]
     dev = packed_q.device
-    splits = _d1_splits(
-        p_cnt, n_q, n_t,
-        torch.cuda.get_device_properties(dev).multi_processor_count)
+    splits = _d1_splits(p_cnt, n_q, n_t, _sm_count(dev.index))
     d1 = torch.empty((p_cnt, n_q), dtype=torch.int32, device=dev)
     partial = (torch.empty((splits, p_cnt, n_q), dtype=torch.int32,
                            device=dev) if splits > 1 else None)
@@ -609,6 +645,8 @@ def motion_support(xy_q: torch.Tensor, xy_t_matched: torch.Tensor,
 
 _L2_PAIRS_PER_PASS = 16   # bounds the plain version's [P, N, M] block
 L2_DIM = 128
+_L2_QUERY_ROWS = 128      # query rows a block of kernel G
+_L2_STAGE_ROWS = 64       # target rows a stage of kernel G
 
 
 def l2_knn2_plain(desc_q: torch.Tensor, valid_q: torch.Tensor,
@@ -638,15 +676,44 @@ def l2_knn2_plain(desc_q: torch.Tensor, valid_q: torch.Tensor,
     return d1, idx.to(torch.int32), d2
 
 
+def frame_extents(valid: torch.Tensor) -> torch.Tensor:
+    """[F] int32 extent of each frame of a ``[F, N]`` bool validity: its
+    last valid row + 1, 0 where no row is valid. Valid rows need not come
+    first: rows before the extent may be invalid. The plain form of the
+    extents that kernel G's blocks reduce from the validity bytes they
+    read; one reduction on the tensor's device, no readback."""
+    n = valid.shape[-1]
+    if not n:
+        return torch.zeros(valid.shape[:-1], dtype=torch.int32,
+                           device=valid.device)
+    pos = torch.arange(1, n + 1, dtype=torch.int32, device=valid.device)
+    return torch.amax(torch.where(valid, pos, 0), dim=-1)
+
+
+def _l2_splits(p_cnt: int, n_q: int, n_t: int, sm_count: int) -> int:
+    """Number of target-row splits of one kernel G launch: 1 when the pair
+    list gives every SM a block (kernel G runs one block an SM), else enough
+    to, with no split under two stages of target rows (the keyframe step's
+    single pair: 12 query blocks would leave 120 SMs idle)."""
+    blocks = p_cnt * (-(-n_q // _L2_QUERY_ROWS))
+    want = -(-sm_count // max(blocks, 1))
+    return max(1, min(want, n_t // (2 * _L2_STAGE_ROWS)))
+
+
 def l2_knn2(desc_q: torch.Tensor, valid_q: torch.Tensor,
             desc_t: torch.Tensor, valid_t: torch.Tensor, qidx: torch.Tensor,
             tidx: torch.Tensor):
     """:func:`l2_knn2_plain`; on CUDA tensors one launch of kernel G over the
-    whole pair list (32 query rows of a pair per block, target rows staged
-    in shared memory, float32 dots). The pairs index the stores in place.
-    Bitwise equal to the plain version on integer-valued descriptors;
-    otherwise the dot products sum in another order than cuBLAS's (within
-    1e-5 at unit-norm descriptors).
+    whole pair list (128 query rows of a pair per block as tensor-core
+    fragments, target rows staged in shared memory, the cross term in
+    3xTF32, which keeps float32 accuracy; a short pair list splits the
+    target rows over blocks and merges them in a second pass). The pairs
+    index the stores in place; each block reduces the extents
+    (:func:`frame_extents`) of its query rows and its target frame from the
+    validity, and reads no row past them. Bitwise equal to the
+    plain version on integer-valued descriptors; otherwise the dot products
+    sum in another order than cuBLAS's (within 1e-5 at unit-norm
+    descriptors).
 
     Unlike the TPU kernel, which leaves invalid query rows unmasked, an
     invalid query row gets (1e30, 0, 1e30) here, as on the JAX package's
@@ -673,13 +740,18 @@ def l2_knn2(desc_q: torch.Tensor, valid_q: torch.Tensor,
     tidx = tidx.to(torch.int32).contiguous()
     p_cnt, n_q, n_t = qidx.shape[0], desc_q.shape[1], desc_t.shape[1]
     dev = desc_q.device
+    splits = _l2_splits(p_cnt, n_q, n_t, _sm_count(dev.index))
     d1 = torch.empty((p_cnt, n_q), dtype=torch.float32, device=dev)
     idx = torch.empty((p_cnt, n_q), dtype=torch.int32, device=dev)
     d2 = torch.empty((p_cnt, n_q), dtype=torch.float32, device=dev)
+    partial = (torch.empty((3, splits, p_cnt, n_q), dtype=torch.int32,
+                           device=dev) if splits > 1 else None)
     _launch("l2_knn2", dev, desc_q.data_ptr(), desc_t.data_ptr(),
             valid_q.data_ptr(), valid_t.data_ptr(), qidx.data_ptr(),
-            tidx.data_ptr(), d1.data_ptr(), idx.data_ptr(), d2.data_ptr(),
-            p_cnt, n_q, n_t)
+            tidx.data_ptr(),
+            d1.data_ptr(), idx.data_ptr(), d2.data_ptr(),
+            partial.data_ptr() if splits > 1 else None, p_cnt, n_q, n_t,
+            splits)
     return d1, idx, d2
 
 

@@ -103,9 +103,8 @@ def load() -> ctypes.CDLL:
     fp = ctypes.POINTER(ctypes.c_float)
     ip = ctypes.POINTER(ctypes.c_int)
     signatures = {
-        # img, score_tmp, score_out, blur_out, host taps[7], b, h, w,
-        # threshold, stream
-        "slam_fast_score_nms_blur": (p, p, p, p, fp, i, i, i, f, p),
+        # img, score_out, blur_out, host taps[7], b, h, w, threshold, stream
+        "slam_fast_score_nms_blur": (p, p, p, fp, i, i, i, f, p),
         # img, xy, out, b, k, h, w, patch, center, stream
         "slam_extract_patches": (p, p, p, i, i, i, i, i, i, p),
         # packed, valid, qidx, tidx, out, p_cnt, n, block, scale, stream
@@ -124,9 +123,9 @@ def load() -> ctypes.CDLL:
         "slam_hamming_tile_product": (p, p, p, p),
         # q [batch, n, 4], mask, out, batch, n, radius^2, tau^2, stream
         "slam_motion_support": (p, p, p, i, i, f, f, p),
-        # q, t, valid_q, valid_t, qidx, tidx, d1, idx, d2, p_cnt, n_q, n_t,
-        # stream
-        "slam_l2_knn2": (p, p, p, p, p, p, p, p, p, i, i, i, p),
+        # q, t, valid_q, valid_t, qidx, tidx, d1, idx, d2, partial, p_cnt,
+        # n_q, n_t, splits, stream
+        "slam_l2_knn2": (p, p, p, p, p, p, p, p, p, p, i, i, i, i, p),
         # img, gauss, resp, host taps [levels, 19], host radii [levels],
         # levels, b, h, w, s (0: gauss only), thr, edge_r, (edge_r + 1)^2,
         # border, stream

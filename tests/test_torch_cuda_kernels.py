@@ -53,11 +53,21 @@ def test_ship_frames_on_card_equals_cpu(dev):
                        image_ops.ship_frames(u8, "cpu"))
 
 
-@pytest.mark.parametrize("h,w", [(37, 61), (120, 160), (625, 1111)])
-def test_fast_kernel_bitwise(dev, h, w):
-    rng = np.random.default_rng(h)
-    imgs = torch.from_numpy(
-        (rng.integers(0, 256, (3, h, w)) / 255.0).astype(np.float32)).to(dev)
+@pytest.mark.parametrize("b,h,w", [(3, 37, 61), (3, 120, 160),
+                                   (3, 625, 1111), (1, 1080, 1920),
+                                   (2, 21, 50), (2, 540, 960),
+                                   (2, 450, 800), (2, 313, 555)])
+def test_fast_kernel_bitwise(dev, b, h, w):
+    """Random 8-bit frames (a ragged tile edge, one frame at 1080p as the
+    live path gives it, a frame narrower than one 64 x 16 tile, and the
+    540x960 levels of ORB SfM and multi-video, odd widths included) and the
+    same frames with flat regions (where the compass pre-test skips whole
+    warps)."""
+    rng = np.random.default_rng(h * w + b)
+    u8 = rng.integers(0, 256, (b, h, w))
+    u8[:, h // 3:2 * h // 3] = 128
+    u8[:, :, w // 2:w // 2 + 9] = 200
+    imgs = torch.from_numpy((u8 / 255.0).astype(np.float32)).to(dev)
     score, blur = ck.fast_score_nms_blur(imgs)
     ref_s, ref_b = ck.fast_score_nms_blur_plain(imgs)
     assert torch.equal(score, ref_s) and torch.equal(blur, ref_b)
@@ -490,8 +500,11 @@ def test_sfm_on_card_equals_cpu(dev, monkeypatch):
 
 def _l2_stores(rng, frames_q, n_q, frames_t, n_t, integer):
     """Descriptor stores with forced duplicate target rows (ties: d2 = d1
-    at the lowest index), queries equal to targets, invalid rows and an
-    all-invalid target frame (the last): integer-valued, or unit-norm
+    at the lowest index), queries equal to targets, invalid rows scattered
+    through every frame (valid rows not packed first), a query frame and a
+    target frame whose rows past the middle are all invalid (extents below
+    the row count), an all-invalid query frame (extent 0, the last but one)
+    and an all-invalid target frame (the last): integer-valued, or unit-norm
     SIFT-like rows (non-negative, clipped at 0.2, renormalised)."""
     def rows(*shape):
         if integer:
@@ -508,26 +521,35 @@ def _l2_stores(rng, frames_q, n_q, frames_t, n_t, integer):
     vq = rng.random((frames_q, n_q)) > 0.1
     vt = rng.random((frames_t, n_t)) > 0.1
     vt[:, :3] = vt[:, n_t // 2:n_t // 2 + 3] = True
+    vq[1, n_q // 2 + 3:] = False
+    vt[2, n_t // 2 + 3:] = False
+    vq[-2] = False
     vt[-1] = False
     return q, vq, t, vt
 
 
 @pytest.mark.parametrize("integer", [True, False])
-@pytest.mark.parametrize("n,pairs", [(4000, 1), (1000, 300), (70, 5)])
+@pytest.mark.parametrize("n,pairs", [(4000, 1), (1000, 300), (70, 5),
+                                     (1001, 1), (1001, 1176), (1536, 1),
+                                     (1536, 1176)])
 def test_l2_knn2_kernel(dev, n, pairs, integer):
     """Kernel G against its plain version over a pair list of the stores, in
     place: bitwise on integer-valued descriptors; on SIFT-like ones d1 and
     d2 within 1e-5 and idx equal away from near-ties. A keyframe-step pair
-    at 4,000 rows, 300 loop-search pairs at 1,000, a small ragged case;
-    strided int64 pair lists and validity (fault F4)."""
+    at 4,000 rows, 300 loop-search pairs at 1,000, a small ragged case,
+    rows that are no multiple of the kernel's tiles (1,001, and the SIFT
+    run's 1,536) at one pair and at the loop search's 1,176; strided int64
+    pair lists and validity (fault F4)."""
     rng = np.random.default_rng(n + pairs + integer)
     q, vq, t, vt = _l2_stores(rng, 6, n, 7, n - 3, integer)
     dq, dt = torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev)
     vq, vt = torch.from_numpy(vq).to(dev), torch.from_numpy(vt).to(dev)
     qidx = torch.from_numpy(rng.integers(0, 6, pairs).astype(np.int32)).to(dev)
     tidx = torch.from_numpy(rng.integers(0, 7, pairs).astype(np.int32)).to(dev)
-    tidx[0] = 0
+    qidx[0], tidx[0] = 0, 0
     if pairs > 1:
+        qidx[1:4] = torch.tensor([1, 4, 2], dtype=torch.int32)
+        tidx[1:4] = torch.tensor([2, 1, 3], dtype=torch.int32)
         tidx[-1] = 6
     ref = ck.l2_knn2_plain(dq, vq, dt, vt, qidx, tidx)
     q64, t64 = torch.stack([qidx, tidx], 1).long().T
@@ -550,6 +572,7 @@ def test_l2_knn2_kernel(dev, n, pairs, integer):
     assert (d1[inv] == 1e30).all() and (idx[inv] == 0).all()
     if pairs > 1:
         assert (d1[-1] == 1e30).all() and (d2[-1] == 1e30).all()
+        assert (d1[2] == 1e30).all()          # the all-invalid query frame
 
 
 @pytest.mark.parametrize("emit_resp", [True, False])
