@@ -14,7 +14,9 @@ each printed with its result and seconds on its own line:
    score and the blur), with CUDA-event times of both; kernel A also on one
    1080p frame (the live path), on a 540x960 crop's levels (ORB SfM and
    multi-video) and on frames narrower than its 64 x 16 tile, with the
-   share of pixels that pass its compass pre-test;
+   share of pixels that pass its compass pre-test; kernel E also on single
+   sets of 4,000 and 1,531 matches (its target rows split over blocks),
+   with profiler device times beside the CUDA-event ones;
 4. slice process_video: ``LoopClosingSystem(device="cuda").process_video``
    on 96 frames of 1080p synthetic closed-loop video at ORB-2000 with one
    keypoint per 8-px cell — kernels A, B and C must launch, the orbit's
@@ -31,10 +33,12 @@ each printed with its result and seconds on its own line:
    then the 32-frame 144x192 fixture of the tests through process_video and
    through process_frame on the CPU and on the card: equal loop sets;
 7. kernel F: the Hamming top-2 kernel against its plain version at the
-   Version-B shapes (one 1,000 x 1,000 keyframe-pass pair; the loop
-   search's pair list over a 48-keyframe store at gap 24; invalid query
-   and target rows, an all-invalid keyframe, forced ties), bitwise, and
-   kernel E over a batch of 32 match sets (a verification chunk);
+   Version-B shapes (one 1,000 x 1,000 keyframe-pass pair, its target rows
+   split over blocks; the loop search's pair list over a 48-keyframe store
+   at gap 24; invalid query and target rows, an all-invalid keyframe,
+   forced ties), bitwise, and kernel E over batches of 32 match sets (the
+   ORB and SIFT verification chunks, 1,000 and 1,536 matches), each shape
+   with CUDA-event and profiler device times beside its bound;
 8. slice SfMPipeline.run: the Version-B pipeline at
    bench_reconstruct.py's configuration (96 x 540x960 uint8 orbit frames,
    ORB-1000 grid 8, its keyframe / loop-verify gates, 1,024 RANSAC
@@ -212,6 +216,9 @@ STREAM_KERNELS = ("fast_score_nms_blur", "extract_patches", "pair_counts",
 SFM_FRAMES, SFM_H, SFM_W = 96, 540, 960   # bench_reconstruct.py's defaults
 SFM_FEATURES = 1000
 SFM_STORE, SFM_GAP = 48, 24     # kernel F's loop-search check: K/2 gap
+SUPPORT_EXTRA_SIZES = (4000, 1531)   # kernel E at batch 1 beside the live 2000
+SIFT_STORE_ROWS = 1536      # rows a frame of the SIFT keyframe store (the
+                            # count bucket of SIFT-4000's 927-1,413 valid)
 SFM_KERNELS = ("fast_score_nms_blur", "extract_patches", "hamming_knn2",
                "motion_support")
 # CPU vs card on the SfM fixture: float gates (the Sampson threshold, the
@@ -294,6 +301,42 @@ def bound_pipes(nbytes: float, ops: dict) -> dict:
                 library_ms=None)
 
 
+def support_set(rng, batch: int, n: int, dev, radius: float, tau: float):
+    """(arguments of kernel E, valid matches): ``batch`` sets of ``n``
+    matches in normalized coordinates ([n, 2] points for one set, as the
+    live path passes them), a smooth flow with a third of outliers and a
+    fifth of the rows masked out."""
+    import torch
+
+    xq = rng.uniform(-0.6, 0.6, (batch, n, 2))
+    flow = 0.02 + 0.002 * rng.normal(size=(batch, n, 2))
+    flow[:, : n // 3] = rng.uniform(-0.3, 0.3, (batch, n // 3, 2))
+    mask = rng.random((batch, n)) < 0.8
+    pick = (lambda x: x[0]) if batch == 1 else (lambda x: x)
+    xq_d = torch.from_numpy(pick(xq).astype(np.float32)).to(dev)
+    xt_d = torch.from_numpy(pick(xq - flow).astype(np.float32)).to(dev)
+    mask_d = torch.from_numpy(pick(mask)).to(dev)
+    return (xq_d, xt_d, mask_d, radius, tau), int(mask.sum())
+
+
+def support_record(ck, args, reps: int, plain_reps: int) -> dict:
+    """Kernel E's CUDA-event time on ``args`` beside its plain version's and
+    its bound: per pair of valid matches 10 float32 instructions on the FMA
+    pipe (4 subtracts, 4 multiplies, 2 adds, none an FMA) and 2 compares
+    (the min/max pipe); 21 bytes a match (two points, the mask, the
+    count)."""
+    mask = args[2]
+    nv = mask.reshape(-1, mask.shape[-1]).sum(-1).double()
+    pairs = float((nv * nv).sum())
+    return dict(shape=list(mask.shape), max_abs_err=0.0,
+                ms=cuda_ms(lambda: ck.motion_support(*args), reps),
+                device_ms=device_ms(lambda: ck.motion_support(*args), reps),
+                plain_ms=cuda_ms(lambda: ck.motion_support_plain(*args),
+                                 plain_reps),
+                **bound_pipes(mask.numel() * (16 + 1 + 4),
+                              {"ffma": 10 * pairs, "fmnmx": 2 * pairs}))
+
+
 def pair_work(nv_q: np.ndarray, nv_t: np.ndarray, qidx, tidx) -> float:
     """Valid (query row, target row) combinations of a frame-pair list,
     from the valid row counts of each store's frames."""
@@ -362,6 +405,27 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time (ms) of one ``fn()`` over ``reps`` calls after a
+    warm-up: the summed self device time of every kernel and memset the
+    calls ran, under the profiler. Unlike :func:`cuda_ms` it leaves out the
+    host's time between launches, which sets the pace of a small call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    # two sessions, the second counted: a process's first session can miss
+    # kernels that ran while the tracer started
+    for _ in range(2):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total", 0.0)
+               for e in prof.key_averages()) / 1e3 / reps
 
 
 def max_ulp(a, b) -> int:
@@ -635,17 +699,29 @@ def check_live_kernels(dev) -> dict:
     got = ck.motion_support(*args)
     ref = ck.motion_support_plain(*args)
     check_bitwise("motion_support", [got], [ref])
-    ms = cuda_ms(lambda: ck.motion_support(*args), 20)
-    plain_ms = cuda_ms(lambda: ck.motion_support_plain(*args), 5)
-    # per match pair two squared distances (2 sub, 2 mul, 1 add each) and
-    # two compares
-    records["motion_support"] = dict(
-        max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
-        **bound(n * (16 + 1 + 4), 12.0 * n * n, "f32"))
+    rec = support_record(ck, args, 20, 5)
+    rec["max_abs_err"] = float((got - ref).abs().max())
+    rec["shapes"] = {}
+    # batch 1 at twice the live size and at sizes that are no multiple of
+    # a slab (512), a stage (512) or a split's floor (64)
+    extra = []
+    for m in SUPPORT_EXTRA_SIZES:
+        a = support_set(rng, 1, m, dev, system._radius, system._tau)[0]
+        check_bitwise(f"motion_support ({m} matches)",
+                      [ck.motion_support(*a)], [ck.motion_support_plain(*a)])
+        extra.append(f"{m}: {cuda_ms(lambda: ck.motion_support(*a), 20):.4f}"
+                     f" ms (device "
+                     f"{device_ms(lambda: ck.motion_support(*a), 20):.4f} ms)")
+        if m == 4000:
+            rec["shapes"]["batch 1 x 4000"] = support_record(ck, a, 20, 3)
+    records["motion_support"] = rec
     phase("kernel E motion_support", t0,
           f"{n} matches, radius {system._radius:.4f} tau {system._tau:.4f} "
           f"(normalized): bitwise (max support {int(got.max())}); kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+          f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f} ms), plain "
+          f"{rec['plain_ms']:.3f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); batch 1, bitwise: "
+          f"{', '.join(extra)}")
     return records
 
 
@@ -929,17 +1005,16 @@ def sfm_config(detector: str = "orb"):
         ransac=RansacConfig(num_hypotheses=1024))
 
 
-def check_sfm_kernels(dev) -> dict:
-    """Kernel F at the keyframe pass's and the loop search's shapes, and
-    kernel E over a verification chunk of 32 match sets."""
+def knn2_store(rng, dev):
+    """Kernel F's check store: (packed words [48, 1000, 8], validity on the
+    card, validity in numpy, the loop search's pair list at gap 24), with
+    duplicated targets (rows 500-519 copy 400-419), the last keyframe's
+    first 100 rows equal to rows 400-499 of the one before, and keyframe 5
+    all invalid."""
     import torch
 
-    from slam_loop_closing_tpu_torch.models import sfm
-    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
     from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
 
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(2)
     k, n = SFM_STORE, SFM_FEATURES
     signed = (rng.integers(0, 2, (k, n, 256)) * 2 - 1).astype(np.int8)
     valid = rng.random((k, n)) < 0.95
@@ -949,10 +1024,24 @@ def check_sfm_kernels(dev) -> dict:
     valid[k - 1, :100] = True
     valid[5] = False                          # an all-invalid keyframe
     packed = desc_ops.signed_to_packed(torch.from_numpy(signed).to(dev))
-    vt = torch.from_numpy(valid).to(dev)
-    del signed
     pairs = [(c, p) for c in range(SFM_GAP, k)
              for p in range(0, c - SFM_GAP + 1)]
+    return packed, torch.from_numpy(valid).to(dev), valid, pairs
+
+
+def check_sfm_kernels(dev) -> dict:
+    """Kernel F at the keyframe pass's and the loop search's shapes, and
+    kernel E over verification chunks of 32 match sets (ORB's 1,000 rows
+    and the SIFT store's 1,536)."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.models import sfm
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2)
+    k, n = SFM_STORE, SFM_FEATURES
+    packed, vt, valid, pairs = knn2_store(rng, dev)
     loop_q, loop_t = torch.tensor(pairs, dtype=torch.int32, device=dev).T
     one_q = torch.tensor([k - 1], dtype=torch.int32, device=dev)
     one_t = torch.tensor([k - 2], dtype=torch.int32, device=dev)
@@ -967,7 +1056,9 @@ def check_sfm_kernels(dev) -> dict:
             cuda_ms(lambda: ck.hamming_knn2(packed, vt, packed, vt, qi, ti),
                     20),
             cuda_ms(lambda: ck.hamming_knn2_plain(packed, vt, packed, vt, qi,
-                                                  ti), 3))
+                                                  ti), 3),
+            device_ms(lambda: ck.hamming_knn2(packed, vt, packed, vt, qi,
+                                              ti), 20))
     d1, idx, d2 = (t.cpu().numpy() for t in got)
     inv_q = ~valid[np.asarray(pairs)[:, 0]]
     empty_t = np.asarray(pairs)[:, 1] == 5
@@ -980,46 +1071,58 @@ def check_sfm_kernels(dev) -> dict:
     if not ((d1[:20] == 0) & (d2[:20] == 0)
             & (idx[:20] == np.arange(400, 420))).all():
         raise AssertionError("forced ties: d2 must equal d1 at the lowest idx")
-    ms, plain_ms = times["loop search"]
+    # bound: the b1 mma's 512 operations a pair of valid rows (as kernel
+    # I's); bytes: the store's words and validity once, 12 bytes out a row
     nv = valid.sum(1)
-    records = {"hamming_knn2": dict(
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-        **bound(k * n * 33 + 12 * len(pairs) * n,
-                512 * pair_work(nv, nv, *zip(*pairs)), "int8"))}
+    shapes = {}
+    for shape, pl in (("keyframe pass", [(k - 1, k - 2)]),
+                      ("loop search", pairs)):
+        shapes[shape] = dict(
+            shape=[len(pl), n, n], max_abs_err=0.0, ms=times[shape][0],
+            plain_ms=times[shape][1], device_ms=times[shape][2],
+            **bound(len({f for pr in pl for f in pr}) * n * 33
+                    + 12 * len(pl) * n,
+                    512 * pair_work(nv, nv, *zip(*pl)), "b1"))
+    records = {"hamming_knn2": dict(shapes["loop search"], shapes=shapes)}
     phase("kernel F hamming_knn2", t0,
-          f"{n} x {n} rows; 1 pair (keyframe pass): bitwise, kernel "
-          f"{times['keyframe pass'][0]:.3f} ms, plain "
-          f"{times['keyframe pass'][1]:.3f} ms; {len(pairs)} pairs of a "
-          f"{k}-keyframe store at gap {SFM_GAP} (loop search): bitwise, "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; invalid rows, an "
-          f"all-invalid keyframe and forced ties checked")
+          f"{n} x {n} rows; bitwise; invalid rows, an all-invalid keyframe "
+          f"and forced ties checked; " + "; ".join(
+              f"{sh} ({r['shape'][0]} pairs): kernel {r['ms']:.4f} ms "
+              f"(device {r['device_ms']:.4f} ms), plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})" for sh, r in shapes.items()))
     del packed, vt
 
     # E over a verification chunk: 32 match sets in normalized coordinates
     t0 = time.perf_counter()
+    c = sfm.VERIFY_CHUNK
+    shapes, out = {}, []
+    for m, label in ((n, "ORB"), (SIFT_STORE_ROWS, "SIFT")):
+        args, nv = support_set(rng, c, m, dev, *sfm_support_radii())
+        got = ck.motion_support(*args)
+        check_bitwise(f"motion_support (batched, {m})", [got],
+                      [ck.motion_support_plain(*args)])
+        rec = support_record(ck, args, 20, 3)
+        shapes[f"verification chunk {c} x {m}"] = rec
+        out.append(f"{c} x {m} ({label}, {nv} valid matches, max support "
+                   f"{int(got.max())}): kernel {rec['ms']:.4f} ms (device "
+                   f"{rec['device_ms']:.4f} ms), plain "
+                   f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+                   f"({rec['bound_by']})")
+    records["motion_support_shapes"] = shapes
+    phase("kernel E motion_support, batched", t0,
+          "verification chunks, bitwise: " + "; ".join(out))
+    return records
+
+
+def sfm_support_radii() -> tuple[float, float]:
+    """Kernel E's radius and tau on the ORB SfM path, in normalized
+    coordinates (f = 0.8 w)."""
     cfg = sfm_config()
     focal = 0.8 * SFM_W
     w_est = 2.0 * cfg.camera.cx
-    radius = max(cfg.match.motion_radius_frac * w_est, 24.0) / focal
-    tau = max(cfg.match.motion_tau_frac * w_est, 8.0) / focal
-    c = sfm.VERIFY_CHUNK
-    xq = rng.uniform(-0.6, 0.6, (c, n, 2))
-    flow = 0.02 + 0.002 * rng.normal(size=(c, n, 2))
-    flow[:, : n // 3] = rng.uniform(-0.3, 0.3, (c, n // 3, 2))
-    xq_d = torch.from_numpy(xq.astype(np.float32)).to(dev)
-    xt_d = torch.from_numpy((xq - flow).astype(np.float32)).to(dev)
-    mask = torch.from_numpy(rng.random((c, n)) < 0.8).to(dev)
-    args = (xq_d, xt_d, mask, radius, tau)
-    got = ck.motion_support(*args)
-    check_bitwise("motion_support (batched)", [got],
-                  [ck.motion_support_plain(*args)])
-    ms = cuda_ms(lambda: ck.motion_support(*args), 20)
-    plain_ms = cuda_ms(lambda: ck.motion_support_plain(*args), 3)
-    phase("kernel E motion_support, batched", t0,
-          f"{c} match sets x {n} (a verification chunk): bitwise (max "
-          f"support {int(got.max())}); kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms")
-    return records
+    return (max(cfg.match.motion_radius_frac * w_est, 24.0) / focal,
+            max(cfg.match.motion_tau_frac * w_est, 8.0) / focal)
 
 
 def count_syncs_in(fn):
@@ -2440,7 +2543,10 @@ def main() -> int:
     check_cpu_agreement(dev)
     del frames, frames_dev
     torch.cuda.empty_cache()
-    records.update(check_sfm_kernels(dev))
+    sfm_records = check_sfm_kernels(dev)
+    records["motion_support"]["shapes"].update(
+        sfm_records.pop("motion_support_shapes"))
+    records.update(sfm_records)
     sfm_launches = run_sfm(sfm_frames, sfm_config(),
                            f"ORB-{SFM_FEATURES} grid 8", SFM_KERNELS, dev,
                            device_ms)

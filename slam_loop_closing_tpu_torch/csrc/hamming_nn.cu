@@ -27,12 +27,51 @@
 //
 // Bound on the H100: at a frame pair of 2000 x 2000 rows the integer work
 // (8 XOR + 8 POPC + adds per row pair, 4 M pairs) is small; the launch and
-// the single pass over the staged targets dominate. Later work: several
-// query rows per warp held in registers (kernel C's scheme) or the +-1 int8
-// form on the tensor cores.
+// the single pass over the staged targets dominate. Later work: the b1
+// tensor-core form of kernel F below (hamming_knn2.cuh).
+//
+// Kernel F (hamming_knn2_kernel). Hamming top-2 of a list of frame pairs:
+// for pair p and query row i of frame qidx[p], over the valid rows j of
+// frame tidx[p],
+//   d1[p, i] = min_j hamming(q_i, t_j),  idx[p, i] = the lowest j at d1,
+//   d2[p, i] = the second smallest distance of the multiset (d1 on a tie);
+// (2^30, 0, 2^30) for an invalid query row or a target frame with no valid
+// row, d2 = 2^30 where one target row is valid (the JAX package's
+// reference path: matching.knn2 of matching.hamming_matrix).
+//
+// Replaces: slam_loop_closing_tpu/ops/pallas_kernels.py,
+// _hamming_knn2_kernel (via hamming_knn2). The TPU kernel ran the +-1 int8
+// product on its matrix unit, one target set per call, and left invalid
+// query rows unmasked; here the pair list indexes the stores in place and
+// query validity is applied in the kernel.
+//
+// Design: hamming_knn2.cuh's top2_keys, the tensor cores' b1 and-popc
+// product with each distance folded into a key (distance << 20 | target
+// row), so the top-2 is three integer min/max a distance and every merge is
+// exact and order-free. One block of 256 threads per (pair, slab of 256
+// query rows, split of the target rows): a warp holds two 16-row query
+// tiles as fragments (the epilogue, not the mma, sets the pace: 4 tiles
+// gained 6% at the loop search and lost 43% at one unsplit pair, 8 lost at
+// both; csrc/probes/probe_support_knn2.py). With many pairs (the loop
+// search) there is one split and the block writes (d1, idx, d2); with few
+// (the keyframe step's one pair: 4 slabs) the target rows are split over
+// blocks, each writes its two keys a row to a scratch buffer and takes a
+// ticket of its slab, and the block that takes the last ticket merges the
+// slab's keys: one launch either way. The merge is order-free on distinct
+// keys, so the result does not depend on which block comes last: bitwise
+// equal to the plain version.
+//
+// Bound on the H100: the b1 mma at the rate csrc/probes/
+// probe_hamming_forms.py measures (10.1 POP/s, 512 operations a row pair).
+// The epilogue's 4 integer instructions a distance (one multiply-add, 3
+// min/max) issue on the ALU pipes at 64 a clock an SM, which is what holds
+// the kernel at 6.6x the mma's bound at the loop search (0.086 against
+// 0.013 ms; the old branchy epilogue on the same mma ran 38% slower).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hamming_knn2.cuh"
 
 namespace {
 
@@ -100,92 +139,99 @@ hamming_nn_kernel(const uint4* __restrict__ q, const uint4* __restrict__ t,
   }
 }
 
-// q: [fq, n_q, 2] uint4; t: [ft, n_t, 2] uint4; vq: [fq, n_q], vt: [ft, n_t]
-// uint8; qidx, tidx: [p] int32; d1, idx, d2: [p, n_q] int32. Block b
-// handles rows (b % row_blocks) * kWarps ... of pair b / row_blocks.
+constexpr int kKnnTiles = 2;  // 16-row query tiles a warp
+constexpr int kKnnSlab = hamming_knn2::kSlabRows<kKnnTiles>;  // 256 rows
+static_assert(kKnnSlab == kThreads, "the merge gives each thread one row");
+
+// q: [fq, n_q, 8] words; t: [ft, n_t, 8] words; vq: [fq, n_q], vt: [ft,
+// n_t] uint8; qidx, tidx: [p] int32; d1, idx, d2: [p, n_q] int32.
+// blockIdx.x = (pair * slabs + slab) * splits + split; split s scans target
+// rows [s * split_len, min(n_t, (s + 1) * split_len)). With splits > 1
+// each block writes its two keys a row to partial ([splits, p, n_q] int2)
+// and takes a ticket from tickets[pair * slabs + slab] (zero on entry); the
+// block that takes the last one merges the slab's keys over the splits,
+// writes (d1, idx, d2) and returns the ticket to zero for the next launch.
 __global__ void __launch_bounds__(kThreads)
-hamming_knn2_kernel(const uint4* __restrict__ q, const uint4* __restrict__ t,
+hamming_knn2_kernel(const uint32_t* __restrict__ q,
+                    const uint32_t* __restrict__ t,
                     const uint8_t* __restrict__ vq,
                     const uint8_t* __restrict__ vt,
                     const int* __restrict__ qidx, const int* __restrict__ tidx,
                     int* __restrict__ d1, int* __restrict__ idx,
-                    int* __restrict__ d2, int n_q, int n_t, int row_blocks) {
-  __shared__ uint4 st[kChunk][2];
-  __shared__ uint8_t sv[kChunk];
-  const int pair = blockIdx.x / row_blocks;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = (blockIdx.x % row_blocks) * kWarps + warp;
+                    int* __restrict__ d2, int2* __restrict__ partial,
+                    unsigned* __restrict__ tickets, int p_cnt, int n_q,
+                    int n_t, int slabs, int splits, int split_len) {
+  __shared__ __align__(16) unsigned char smem[hamming_knn2::kSmemBytes];
+  __shared__ bool last;
+  const int split = blockIdx.x % splits;
+  const int slab = (blockIdx.x / splits) % slabs;
+  const int pair = blockIdx.x / (splits * slabs);
   const size_t q_base = static_cast<size_t>(qidx[pair]) * n_q;
   const size_t t_base = static_cast<size_t>(tidx[pair]) * n_t;
-  // every thread stays for the block's barriers; inactive rows only skip
-  // the scan
-  const bool active = row < n_q && vq[q_base + row] != 0;
-  uint4 qa = make_uint4(0, 0, 0, 0), qb = make_uint4(0, 0, 0, 0);
-  if (active) {
-    qa = q[2 * (q_base + row)];
-    qb = q[2 * (q_base + row) + 1];
+  const int t_begin = split * split_len;
+  const size_t o = static_cast<size_t>(pair) * n_q;
+  const size_t plane = static_cast<size_t>(p_cnt) * n_q;
+  hamming_knn2::top2_keys<kKnnTiles>(
+      q + q_base * 8, n_q, slab * kKnnSlab, t + t_base * 8, vt + t_base,
+      t_begin, min(n_t, t_begin + split_len), smem,
+      [&](int row, int k1, int k2) {
+        if (splits == 1)
+          hamming_knn2::store(d1, idx, d2, o + row, vq[q_base + row] != 0, k1,
+                              k2);
+        else
+          partial[split * plane + o + row] = make_int2(k1, k2);
+      });
+  if (splits == 1) return;
+  // every block's keys are visible device-wide before its ticket is taken
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned* ticket = tickets + static_cast<size_t>(pair) * slabs + slab;
+    last = atomicAdd(ticket, 1u) == static_cast<unsigned>(splits - 1);
+    if (last) *ticket = 0;
   }
-  int b1 = kBig, j1 = 0, b2 = kBig;
-  for (int t0 = 0; t0 < n_t; t0 += kChunk) {
-    __syncthreads();  // the previous chunk is no longer being read
-    for (int j = threadIdx.x; j < kChunk && t0 + j < n_t; j += kThreads) {
-      st[j][0] = t[2 * (t_base + t0 + j)];
-      st[j][1] = t[2 * (t_base + t0 + j) + 1];
-      sv[j] = vt[t_base + t0 + j];
-    }
-    __syncthreads();
-    if (!active) continue;
-    const int cnt = min(kChunk, n_t - t0);
-    for (int j = lane; j < cnt; j += 32) {
-      if (!sv[j]) continue;
-      const int d = ham(qa, qb, st[j][0], st[j][1]);
-      if (d < b1) {
-        b2 = b1;
-        b1 = d;
-        j1 = t0 + j;
-      } else if (d < b2) {
-        b2 = d;
-      }
-    }
+  __syncthreads();
+  const int row = slab * kKnnSlab + threadIdx.x;
+  if (!last || row >= n_q) return;
+  // other SMs wrote these keys: read them past the (incoherent) L1
+  int2 k = __ldcg(partial + o + row);
+  for (int s = 1; s < splits; ++s) {
+    const int2 b = __ldcg(partial + s * plane + o + row);
+    hamming_knn2::merge2(k.x, k.y, b.x, b.y);
   }
-  for (int o = 16; o > 0; o >>= 1) {
-    const int ob1 = __shfl_xor_sync(0xffffffffu, b1, o);
-    const int oj1 = __shfl_xor_sync(0xffffffffu, j1, o);
-    const int ob2 = __shfl_xor_sync(0xffffffffu, b2, o);
-    if (ob1 < b1 || (ob1 == b1 && oj1 < j1)) {
-      b2 = min(ob2, b1);
-      b1 = ob1;
-      j1 = oj1;
-    } else {
-      b2 = min(b2, ob1);
-    }
-  }
-  if (lane == 0 && row < n_q) {
-    const size_t o = static_cast<size_t>(pair) * n_q + row;
-    d1[o] = b1;
-    idx[o] = j1;
-    d2[o] = b2;
-  }
+  hamming_knn2::store(d1, idx, d2, o + row, vq[q_base + row] != 0, k.x, k.y);
 }
 
 }  // namespace
 
+// (d1, idx, d2) [p, n_q] of the frame pairs (qidx[p], tidx[p]). With
+// splits == 1 `partial` and `tickets` are not read; with splits > 1
+// `partial` is a [splits, p, n_q] int2 scratch buffer and `tickets` holds
+// p * ceil(n_q / 256) zeros, which the launch leaves at zero. n_t must be
+// below 2^20 (the index bits of a key).
 extern "C" int slam_hamming_knn2(const void* q, const void* t, const void* vq,
                                  const void* vt, const void* qidx,
                                  const void* tidx, void* d1, void* idx,
-                                 void* d2, int p, int n_q, int n_t,
+                                 void* d2, void* partial, void* tickets,
+                                 int p, int n_q, int n_t, int splits,
                                  void* stream) {
   if (p > 0 && n_q > 0) {
-    const int row_blocks = (n_q + kWarps - 1) / kWarps;
-    const unsigned blocks = static_cast<unsigned>(p) *
-                            static_cast<unsigned>(row_blocks);
-    hamming_knn2_kernel<<<blocks, kThreads, 0,
+    if (n_t > hamming_knn2::kIdxMask)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int slabs = (n_q + kKnnSlab - 1) / kKnnSlab;
+    if (splits < 1 || n_t < 1) splits = 1;
+    const int split_len = (n_t + splits - 1) / splits;
+    if (n_t > 0) splits = (n_t + split_len - 1) / split_len;
+    const long long blocks = static_cast<long long>(p) * slabs * splits;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    hamming_knn2_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint4*>(q), static_cast<const uint4*>(t),
+        static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(t),
         static_cast<const uint8_t*>(vq), static_cast<const uint8_t*>(vt),
         static_cast<const int*>(qidx), static_cast<const int*>(tidx),
         static_cast<int*>(d1), static_cast<int*>(idx), static_cast<int*>(d2),
-        n_q, n_t, row_blocks);
+        static_cast<int2*>(partial), static_cast<unsigned*>(tickets), p, n_q,
+        n_t, slabs, splits, split_len);
   }
   return static_cast<int>(cudaGetLastError());
 }

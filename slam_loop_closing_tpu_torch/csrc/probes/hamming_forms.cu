@@ -4,7 +4,14 @@
 // Form 3 is the one the library uses (csrc/hamming_mma.cuh); forms 0, 1 and 2
 // lost the probe and live only here. Built and timed by
 // probe_hamming_forms.py; not part of the library.
+//
+// Also the forms of kernel F's top-2 with index (csrc/hamming_knn2.cuh),
+// one launch over a pair list without a target split: the keyed epilogue
+// at 1, 2 (the library's), 4 and 8 query tiles a warp, and the branchy
+// (d1, idx, d2) epilogue of the pre-tensor-core kernel at 2. Timed by
+// probe_support_knn2.py.
 
+#include "hamming_knn2.cuh"
 #include "hamming_mma.cuh"
 
 namespace {
@@ -482,7 +489,184 @@ mma_rate_kernel(int form, int iters, int* __restrict__ out) {
   out[blockIdx.x * kThreads + threadIdx.x] = sum;
 }
 
+// kernel F's top-2 with the branchy epilogue of the pre-tensor-core
+// kernel: hamming_knn2::top2_keys with its running (d1, idx, d2) as distance
+// offsets popc(t) - 2 acc (a strict '<' over each lane's columns in
+// increasing order), turned into keys at the end; 2 query tiles a warp
+__device__ __forceinline__ void knn2_top2_branchy(
+    const uint32_t* __restrict__ q, int n_q, int row0,
+    const uint32_t* __restrict__ t, const uint8_t* __restrict__ tv,
+    int t_begin, int t_end, unsigned char* smem, int* __restrict__ d1,
+    int* __restrict__ idx, int* __restrict__ d2, size_t o,
+    const uint8_t* __restrict__ vq) {
+  namespace hk = hamming_knn2;
+  constexpr int kT = 2;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  uint4* swords = reinterpret_cast<uint4*>(smem);
+  int* scol = reinterpret_cast<int*>(smem + hk::kStage * 32);
+  const int wrow0 = row0 + warp * kT * 16;
+  const bool idle = wrow0 >= n_q;
+  uint32_t a[kT][4];
+  int m1[kT][2], m2[kT][2], j1[kT][2];
+#pragma unroll
+  for (int m = 0; m < kT; ++m) {
+    const int r0 = wrow0 + m * 16 + g, r1 = r0 + 8;
+    const uint2 w0 =
+        r0 < n_q ? hamming_mma::row_slices(q, r0, tq) : make_uint2(0, 0);
+    const uint2 w1 =
+        r1 < n_q ? hamming_mma::row_slices(q, r1, tq) : make_uint2(0, 0);
+    a[m][0] = w0.x;
+    a[m][1] = w1.x;
+    a[m][2] = w0.y;
+    a[m][3] = w1.y;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // 1024 is above every valid offset and lands at kNoKey as a key
+      m1[m][h] = m2[m][h] = 1024;
+      j1[m][h] = 0;
+    }
+  }
+  const uint4* t4 = reinterpret_cast<const uint4*>(t);
+  for (int t0 = t_begin; t0 < t_end; t0 += hk::kStage) {
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < hk::kStage * 2 / hk::kThreads; ++k) {
+      const int i = tid + k * hk::kThreads, row = t0 + (i >> 1);
+      const bool in = row < t_end;
+      const uint4 w = in ? t4[static_cast<size_t>(row) * 2 + (i & 1)]
+                         : make_uint4(0, 0, 0, 0);
+      int pc = __popc(w.x) + __popc(w.y) + __popc(w.z) + __popc(w.w);
+      pc += __shfl_xor_sync(0xffffffffu, pc, 1);
+      swords[i] = w;
+      if ((i & 1) == 0)
+        scol[i >> 1] =
+            in && tv[row] ? (pc << hk::kIdxBits) + row : hk::kInvalidCol;
+    }
+    __syncthreads();
+    if (idle) continue;
+    const int tiles = (min(hk::kStage, t_end - t0) + 7) / 8;
+    const uint2* sw2 = reinterpret_cast<const uint2*>(swords);
+    const int2* sc2 = reinterpret_cast<const int2*>(scol);
+#pragma unroll 2
+    for (int nt = 0; nt < tiles; ++nt) {
+      const uint2 b = sw2[nt * 32 + lane];
+      const int2 c = sc2[nt * 4 + tq];
+      const int p0 = c.x >> hk::kIdxBits, p1 = c.y >> hk::kIdxBits;
+      const int col = t0 + nt * 8 + 2 * tq;
+#pragma unroll
+      for (int m = 0; m < kT; ++m) {
+        int acc[4];
+        hamming_mma::mma_b1(acc, a[m][0], a[m][1], a[m][2], a[m][3], b.x,
+                            b.y, 0, 0, 0, 0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int v = ((e & 1) ? p1 : p0) - 2 * acc[e];
+          if (v < m1[m][h]) {
+            m2[m][h] = m1[m][h];
+            m1[m][h] = v;
+            j1[m][h] = col + (e & 1);
+          } else if (v < m2[m][h]) {
+            m2[m][h] = v;
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kT; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // the lane's lowest index; d2's is moot
+      int k1 = (m1[m][h] << hk::kIdxBits) + j1[m][h];
+      int k2 = (m2[m][h] << hk::kIdxBits) + hk::kIdxMask;
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1)
+        hk::merge2(k1, k2, __shfl_xor_sync(0xffffffffu, k1, off),
+                   __shfl_xor_sync(0xffffffffu, k2, off));
+      int pq = __popc(a[m][h]) + __popc(a[m][2 + h]);
+      pq += __shfl_xor_sync(0xffffffffu, pq, 1);
+      pq += __shfl_xor_sync(0xffffffffu, pq, 2);
+      const int row = wrow0 + m * 16 + h * 8 + g;
+      if (tq == 0 && row < n_q)
+        hk::store(d1, idx, d2, o + row, vq[row] != 0,
+                  k1 + (pq << hk::kIdxBits), k2 + (pq << hk::kIdxBits));
+    }
+  }
+}
+
+template <int kTiles, bool kBranchy>
+__global__ void __launch_bounds__(kThreads)
+knn2_form_kernel(const uint32_t* __restrict__ q,
+                 const uint32_t* __restrict__ t,
+                 const uint8_t* __restrict__ vq,
+                 const uint8_t* __restrict__ vt,
+                 const int* __restrict__ qidx, const int* __restrict__ tidx,
+                 int* __restrict__ d1, int* __restrict__ idx,
+                 int* __restrict__ d2, int n_q, int n_t, int slabs) {
+  __shared__ __align__(16) unsigned char smem[hamming_knn2::kSmemBytes];
+  const int slab = blockIdx.x % slabs, pair = blockIdx.x / slabs;
+  const size_t q_base = static_cast<size_t>(qidx[pair]) * n_q;
+  const size_t t_base = static_cast<size_t>(tidx[pair]) * n_t;
+  const size_t o = static_cast<size_t>(pair) * n_q;
+  if constexpr (kBranchy)
+    knn2_top2_branchy(q + q_base * 8, n_q, slab * hamming_knn2::kSlabRows<2>,
+                      t + t_base * 8, vt + t_base, 0, n_t, smem, d1, idx, d2,
+                      o, vq + q_base);
+  else
+    hamming_knn2::top2_keys<kTiles>(
+        q + q_base * 8, n_q, slab * hamming_knn2::kSlabRows<kTiles>,
+        t + t_base * 8, vt + t_base, 0, n_t, smem,
+        [&](int row, int k1, int k2) {
+          hamming_knn2::store(d1, idx, d2, o + row, vq[q_base + row] != 0,
+                              k1, k2);
+        });
+}
+
+template <int kTiles, bool kBranchy = false>
+int launch_knn2(const void* q, const void* t, const void* vq, const void* vt,
+                const void* qidx, const void* tidx, void* d1, void* idx,
+                void* d2, int p, int n_q, int n_t, void* stream) {
+  const int slabs = (n_q + hamming_knn2::kSlabRows<kTiles> - 1) /
+                    hamming_knn2::kSlabRows<kTiles>;
+  knn2_form_kernel<kTiles, kBranchy>
+      <<<p * slabs, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(t),
+          static_cast<const uint8_t*>(vq), static_cast<const uint8_t*>(vt),
+          static_cast<const int*>(qidx), static_cast<const int*>(tidx),
+          static_cast<int*>(d1), static_cast<int*>(idx),
+          static_cast<int*>(d2), n_q, n_t, slabs);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// kernel F's forms, no target split: 0, 1, 2, 3: keyed epilogue at 1, 2
+// (the library's), 4, 8 query tiles a warp; 4: branchy epilogue at 2.
+// d1, idx, d2: [p, n_q] int32.
+extern "C" int probe_knn2(int form, const void* q, const void* t,
+                          const void* vq, const void* vt, const void* qidx,
+                          const void* tidx, void* d1, void* idx, void* d2,
+                          int p, int n_q, int n_t, void* stream) {
+  switch (form) {
+    case 0:
+      return launch_knn2<1>(q, t, vq, vt, qidx, tidx, d1, idx, d2, p, n_q,
+                            n_t, stream);
+    case 1:
+      return launch_knn2<2>(q, t, vq, vt, qidx, tidx, d1, idx, d2, p, n_q,
+                            n_t, stream);
+    case 2:
+      return launch_knn2<4>(q, t, vq, vt, qidx, tidx, d1, idx, d2, p, n_q,
+                            n_t, stream);
+    case 3:
+      return launch_knn2<8>(q, t, vq, vt, qidx, tidx, d1, idx, d2, p, n_q,
+                            n_t, stream);
+    default:
+      return launch_knn2<2, true>(q, t, vq, vt, qidx, tidx, d1, idx, d2, p,
+                                  n_q, n_t, stream);
+  }
+}
 
 // form 0: s8; 1: b1 with one mma, rows in place; 2: b1 with two mma; 3: the
 // library's (b1, one mma, rows compacted by parity). out: [splits, p, n_q].

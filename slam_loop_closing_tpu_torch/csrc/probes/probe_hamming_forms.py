@@ -56,6 +56,7 @@ def build() -> ctypes.CDLL:
     lib.probe_hamming_d1.argtypes = (i, p, p, p, p, p, p, i, i, i, i, p)
     lib.probe_tile_product.argtypes = (i, p, p, p, p)
     lib.probe_mma_rate.argtypes = (i, i, i, p, p)
+    lib.probe_knn2.argtypes = (i, p, p, p, p, p, p, p, p, p, i, i, i, p)
     return lib
 
 

@@ -31,7 +31,9 @@ gauss_stack_resp       csrc/gauss_stack_resp.cu      ``_gauss_stack_resp_kernel`
 
 ``band_count_tiles``, ``pair_counts`` and ``hamming_d1`` share one inner loop,
 ``csrc/hamming_mma.cuh``: the tensor cores' one-bit and-popc product on the
-packed words.
+packed words. ``hamming_knn2`` runs the same product through
+``csrc/hamming_knn2.cuh``, which folds each distance and its target row into
+one key for an exact top-2 with index.
 """
 
 from __future__ import annotations
@@ -89,6 +91,16 @@ def _sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index`` (asked once: the
     keyframe step launches kernel G at every frame)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _target_splits(blocks: int, blocks_per_sm: int, n_t: int,
+                   min_rows: int, sm_count: int) -> int:
+    """Number of splits of the target rows of one launch of a kernel whose
+    pair list (or batch) alone gives ``blocks`` blocks: 1 when these give
+    every SM ``blocks_per_sm`` blocks, else enough to, with no split
+    scanning fewer than ``min_rows`` target rows (kernels E, F, G and I)."""
+    want = -(-blocks_per_sm * sm_count // max(blocks, 1))
+    return max(1, min(want, n_t // min_rows))
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -373,6 +385,24 @@ def hamming_nn(packed_q: torch.Tensor, valid_q: torch.Tensor,
 # --------------------------------------------------------------------------
 
 _KNN2_PAIRS_PER_PASS = 64   # bounds the plain version's [P, N, M] block
+_KNN2_SLAB = 256            # query rows a block of kernel F (8 warps x 32)
+_KNN2_BLOCKS_PER_SM = 2     # blocks a target split of kernel F aims for
+_KNN2_MIN_SPLIT_ROWS = 64   # fewest target rows a split of kernel F scans
+_KNN2_MAX_ROWS = 1 << 20    # a key holds the target row in 20 bits
+_KNN2_TICKETS: dict = {}    # (device, stream) -> kernel F's zeroed tickets
+
+
+def _knn2_tickets(dev: torch.device, count: int) -> torch.Tensor:
+    """At least ``count`` int32 zeros on ``dev`` for the tickets of kernel
+    F's split merge, one buffer for each stream: a launch returns every
+    ticket it takes to zero, so the buffer serves the stream's next launch
+    as it is (two streams sharing one would race)."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _KNN2_TICKETS.get(key)
+    if buf is None or buf.numel() < count:
+        buf = torch.zeros(max(count, 64), dtype=torch.int32, device=dev)
+        _KNN2_TICKETS[key] = buf
+    return buf
 
 
 def hamming_knn2_plain(packed_q: torch.Tensor, valid_q: torch.Tensor,
@@ -405,10 +435,15 @@ def hamming_knn2(packed_q: torch.Tensor, valid_q: torch.Tensor,
                  packed_t: torch.Tensor, valid_t: torch.Tensor,
                  qidx: torch.Tensor, tidx: torch.Tensor):
     """:func:`hamming_knn2_plain`; on CUDA tensors one launch of kernel F
-    over the whole pair list (a warp per query row, XOR + ``__popc``). The
-    pairs index the stores in place (``qidx``/``tidx`` stay on the device:
-    they must lie in range, as the plain version's ``index_select`` checks).
-    Bitwise equal to the plain version.
+    over the whole pair list (256 query rows of a pair per block as
+    tensor-core fragments, the b1 and-popc product of
+    ``csrc/hamming_knn2.cuh`` with each distance folded into a (distance,
+    target row) key; a short pair list splits the target rows over blocks,
+    and the last block of a slab to finish merges their keys). The pairs
+    index the stores in
+    place (``qidx``/``tidx`` stay on the device: they must lie in range, as
+    the plain version's ``index_select`` checks). Bitwise equal to the
+    plain version.
 
     Unlike the TPU kernel, which leaves invalid query rows unmasked, an
     invalid query row gets (2^30, 0, 2^30) here, as on the JAX package's
@@ -435,13 +470,25 @@ def hamming_knn2(packed_q: torch.Tensor, valid_q: torch.Tensor,
     qidx = qidx.to(torch.int32).contiguous()
     tidx = tidx.to(torch.int32).contiguous()
     p_cnt, n_q, n_t = qidx.shape[0], packed_q.shape[1], packed_t.shape[1]
-    out = [torch.empty((p_cnt, n_q), dtype=torch.int32,
-                       device=packed_q.device) for _ in range(3)]
-    _launch("hamming_knn2", packed_q.device, packed_q.data_ptr(),
-            packed_t.data_ptr(), valid_q.data_ptr(), valid_t.data_ptr(),
-            qidx.data_ptr(), tidx.data_ptr(), *(o.data_ptr() for o in out),
-            p_cnt, n_q, n_t)
-    return tuple(out)
+    _require(n_t < _KNN2_MAX_ROWS, "at most 2^20 - 1 target rows a frame")
+    dev = packed_q.device
+    slabs = -(-n_q // _KNN2_SLAB)
+    splits = _target_splits(p_cnt * slabs, _KNN2_BLOCKS_PER_SM, n_t,
+                            _KNN2_MIN_SPLIT_ROWS, _sm_count(dev.index))
+    # with splits, the [splits, P, N] int2 keys of the merge (first, so
+    # 8-byte aligned), then d1, idx and d2: one allocation, as the keyframe
+    # step calls this once a frame
+    scratch = 2 * splits if splits > 1 else 0
+    buf = torch.empty((scratch + 3, p_cnt, n_q), dtype=torch.int32,
+                      device=dev)
+    base, plane = buf.data_ptr(), 4 * p_cnt * n_q
+    tickets = (_knn2_tickets(dev, p_cnt * slabs).data_ptr() if splits > 1
+               else None)
+    _launch("hamming_knn2", dev, packed_q.data_ptr(), packed_t.data_ptr(),
+            valid_q.data_ptr(), valid_t.data_ptr(), qidx.data_ptr(),
+            tidx.data_ptr(), *(base + (scratch + k) * plane for k in range(3)),
+            base if splits > 1 else None, tickets, p_cnt, n_q, n_t, splits)
+    return tuple(buf[scratch:].unbind(0))
 
 
 # --------------------------------------------------------------------------
@@ -449,6 +496,7 @@ def hamming_knn2(packed_q: torch.Tensor, valid_q: torch.Tensor,
 # --------------------------------------------------------------------------
 
 _D1_SLAB = 1024          # query rows per block of kernel I (8 warps x 128)
+_D1_BLOCKS_PER_SM = 2     # blocks a target split of kernel I aims for
 _D1_MIN_SPLIT_ROWS = 128  # fewest target rows a split of kernel I scans
 
 
@@ -475,15 +523,6 @@ def hamming_d1_pairs_plain(packed_q: torch.Tensor, packed_t: torch.Tensor,
         return torch.zeros((0, packed_q.shape[1]), dtype=torch.int32,
                            device=packed_q.device)
     return torch.cat(outs).to(torch.int32)
-
-
-def _d1_splits(p_cnt: int, n_q: int, n_t: int, sm_count: int) -> int:
-    """Number of target-row splits of one kernel I launch: 1 when the pair
-    list alone gives every SM two blocks (the dense scan), else enough to,
-    with no split scanning fewer than :data:`_D1_MIN_SPLIT_ROWS` rows."""
-    blocks = p_cnt * (-(-n_q // _D1_SLAB))
-    want = -(-2 * sm_count // max(blocks, 1))
-    return max(1, min(want, n_t // _D1_MIN_SPLIT_ROWS))
 
 
 def hamming_d1_pairs(packed_q: torch.Tensor, packed_t: torch.Tensor,
@@ -517,7 +556,8 @@ def hamming_d1_pairs(packed_q: torch.Tensor, packed_t: torch.Tensor,
     tidx = tidx.to(torch.int32).contiguous()
     p_cnt, n_q, n_t = qidx.shape[0], packed_q.shape[1], packed_t.shape[1]
     dev = packed_q.device
-    splits = _d1_splits(p_cnt, n_q, n_t, _sm_count(dev.index))
+    splits = _target_splits(p_cnt * -(-n_q // _D1_SLAB), _D1_BLOCKS_PER_SM,
+                            n_t, _D1_MIN_SPLIT_ROWS, _sm_count(dev.index))
     d1 = torch.empty((p_cnt, n_q), dtype=torch.int32, device=dev)
     partial = (torch.empty((splits, p_cnt, n_q), dtype=torch.int32,
                            device=dev) if splits > 1 else None)
@@ -611,13 +651,20 @@ def motion_support_plain(xy_q: torch.Tensor, xy_t_matched: torch.Tensor,
     return torch.where(mask, s - 1, 0).to(torch.int32)
 
 
+_MS_SLAB = 512             # query matches a block of kernel E (128 x 4)
+_MS_MIN_SPLIT = 32         # fewest target matches a split of kernel E counts
+_MS_BLOCKS_PER_SM = 4      # blocks of 128 threads kernel E aims to give an SM
+
+
 def motion_support(xy_q: torch.Tensor, xy_t_matched: torch.Tensor,
                    mask: torch.Tensor, radius: float,
                    tau: float) -> torch.Tensor:
     """:func:`motion_support_plain` of [N, 2] float32 points, or of a batch
-    [B, N, 2] of match sets, as one kernel launch on CUDA tensors (a thread
-    per query match, the match set staged in shared memory, no FMA
-    contraction). Bitwise equal to the plain version."""
+    [B, N, 2] of match sets, as one kernel launch on CUDA tensors (4 query
+    matches a thread in registers, the target matches staged in shared
+    memory and, where the batch does not fill the card, split over blocks
+    whose integer counts add up exactly; no FMA contraction). Bitwise equal
+    to the plain version."""
     _require(xy_q.dim() in (2, 3) and xy_q.shape[-1] == 2
              and xy_q.dtype == torch.float32
              and xy_t_matched.shape == xy_q.shape
@@ -627,14 +674,19 @@ def motion_support(xy_q: torch.Tensor, xy_t_matched: torch.Tensor,
              "mask must be [N] or [B, N] bool")
     if not _on_cuda(xy_q, xy_t_matched, mask):
         return motion_support_plain(xy_q, xy_t_matched, mask, radius, tau)
-    q = torch.cat([xy_q, xy_q - xy_t_matched], dim=-1).contiguous()
-    _require(q.data_ptr() % 16 == 0, "point buffer must be 16-byte aligned")
-    batch = q.shape[0] if q.dim() == 3 else 1
+    # converted copies stay bound until the launch returns (fault F4)
+    xy_q = xy_q.contiguous()
+    xy_t_matched = xy_t_matched.contiguous()
+    mask = mask.contiguous().view(torch.uint8)
+    batch = xy_q.shape[0] if xy_q.dim() == 3 else 1
     _require(batch <= 65535, "at most 65535 match sets per launch")
-    mask = mask.contiguous().view(torch.uint8)   # bound until the launch
-    out = torch.empty(q.shape[:-1], dtype=torch.int32, device=q.device)
-    _launch("motion_support", q.device, q.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), batch, q.shape[-2], _square_f32(radius),
+    n, dev = xy_q.shape[-2], xy_q.device
+    out = torch.empty(mask.shape, dtype=torch.int32, device=dev)
+    _launch("motion_support", dev, xy_q.data_ptr(), xy_t_matched.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), batch, n,
+            _target_splits(batch * -(-n // _MS_SLAB), _MS_BLOCKS_PER_SM, n,
+                           _MS_MIN_SPLIT, _sm_count(dev.index)),
+            _square_f32(radius),
             _square_f32(tau))
     return out
 
@@ -690,16 +742,6 @@ def frame_extents(valid: torch.Tensor) -> torch.Tensor:
     return torch.amax(torch.where(valid, pos, 0), dim=-1)
 
 
-def _l2_splits(p_cnt: int, n_q: int, n_t: int, sm_count: int) -> int:
-    """Number of target-row splits of one kernel G launch: 1 when the pair
-    list gives every SM a block (kernel G runs one block an SM), else enough
-    to, with no split under two stages of target rows (the keyframe step's
-    single pair: 12 query blocks would leave 120 SMs idle)."""
-    blocks = p_cnt * (-(-n_q // _L2_QUERY_ROWS))
-    want = -(-sm_count // max(blocks, 1))
-    return max(1, min(want, n_t // (2 * _L2_STAGE_ROWS)))
-
-
 def l2_knn2(desc_q: torch.Tensor, valid_q: torch.Tensor,
             desc_t: torch.Tensor, valid_t: torch.Tensor, qidx: torch.Tensor,
             tidx: torch.Tensor):
@@ -740,7 +782,11 @@ def l2_knn2(desc_q: torch.Tensor, valid_q: torch.Tensor,
     tidx = tidx.to(torch.int32).contiguous()
     p_cnt, n_q, n_t = qidx.shape[0], desc_q.shape[1], desc_t.shape[1]
     dev = desc_q.device
-    splits = _l2_splits(p_cnt, n_q, n_t, _sm_count(dev.index))
+    # kernel G runs one block an SM; no split under two stages of target
+    # rows (the keyframe step's single pair: 12 query blocks would leave 120
+    # SMs idle)
+    splits = _target_splits(p_cnt * -(-n_q // _L2_QUERY_ROWS), 1, n_t,
+                            2 * _L2_STAGE_ROWS, _sm_count(dev.index))
     d1 = torch.empty((p_cnt, n_q), dtype=torch.float32, device=dev)
     idx = torch.empty((p_cnt, n_q), dtype=torch.int32, device=dev)
     d2 = torch.empty((p_cnt, n_q), dtype=torch.float32, device=dev)

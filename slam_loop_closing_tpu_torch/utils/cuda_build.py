@@ -113,18 +113,19 @@ def load() -> ctypes.CDLL:
         "slam_pair_counts": (p, p, p, p, p, i, i, f, p),
         # q, t, valid_q, valid_t, d1, idx, m, n, stream
         "slam_hamming_nn": (p, p, p, p, p, p, i, i, p),
-        # q, t, valid_q, valid_t, qidx, tidx, d1, idx, d2, p_cnt, n_q, n_t,
-        # stream
-        "slam_hamming_knn2": (p, p, p, p, p, p, p, p, p, i, i, i, p),
+        # q, t, valid_q, valid_t, qidx, tidx, d1, idx, d2, partial, tickets,
+        # p_cnt, n_q, n_t, splits, stream
+        "slam_hamming_knn2": (p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p),
         # q, t, valid_t, qidx, tidx, d1, partial, p_cnt, n_q, n_t, splits,
         # stream
         "slam_hamming_d1": (p, p, p, p, p, p, p, i, i, i, i, p),
         # q [>= 64, 8], t [>= 64, 8], out [64, 64], stream
         "slam_hamming_tile_product": (p, p, p, p),
-        # q [batch, n, 4], mask, out, batch, n, radius^2, tau^2, stream
-        "slam_motion_support": (p, p, p, i, i, f, f, p),
-        # q, t, valid_q, valid_t, qidx, tidx, d1, idx, d2, partial, p_cnt,
-        # n_q, n_t, splits, stream
+        # xy_q [batch, n, 2], xy_t, mask, out, batch, n, splits, radius^2,
+        # tau^2, stream
+        "slam_motion_support": (p, p, p, p, i, i, i, f, f, p),
+        # q, t, valid_q, valid_t, qidx, tidx, d1, idx, d2, partial, tickets,
+        # p_cnt, n_q, n_t, splits, stream
         "slam_l2_knn2": (p, p, p, p, p, p, p, p, p, p, i, i, i, i, p),
         # img, gauss, resp, host taps [levels, 19], host radii [levels],
         # levels, b, h, w, s (0: gauss only), thr, edge_r, (edge_r + 1)^2,

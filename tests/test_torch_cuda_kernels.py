@@ -175,7 +175,7 @@ def test_hamming_nn_kernel_bitwise(dev, m, n):
         assert torch.equal(d1, ref_d1) and torch.equal(idx, ref_idx)
 
 
-@pytest.mark.parametrize("n", [300, 2000, 2500])
+@pytest.mark.parametrize("n", [300, 2000, 2500, 4000, 1531])
 def test_motion_support_kernel_bitwise(dev, n):
     rng = np.random.default_rng(n)
     xy = torch.from_numpy(rng.normal(size=(n, 2)).astype(np.float32)).to(dev)
@@ -236,7 +236,7 @@ def test_process_frame_on_card_equals_cpu(dev):
 
 
 @pytest.mark.parametrize("m,n,pairs", [(70, 90, 5), (1000, 1000, 300),
-                                       (5, 1100, 3)])
+                                       (5, 1100, 3), (1000, 4000, 8)])
 def test_hamming_knn2_kernel_bitwise(dev, m, n, pairs):
     """A query store and a target store indexed in place by a pair list:
     duplicated targets (d2 = d1 ties), queries equal to targets, invalid
@@ -359,8 +359,13 @@ def test_tensor_core_counts_bitwise(dev, n):
     many_q = torch.arange(f, dtype=torch.int32, device=dev).repeat_interleave(f).repeat(6)
     many_t = torch.arange(f, dtype=torch.int32, device=dev).repeat(f * 6)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert ck._d1_splits(1, n, n, sms) > 1
-    assert ck._d1_splits(many_q.shape[0], n, n, sms) == 1
+    def d1_splits(p_cnt):
+        return ck._target_splits(p_cnt * -(-n // ck._D1_SLAB),
+                                 ck._D1_BLOCKS_PER_SM, n,
+                                 ck._D1_MIN_SPLIT_ROWS, sms)
+
+    assert d1_splits(1) > 1
+    assert d1_splits(many_q.shape[0]) == 1
     for qi, ti in ((few_q, few_t), (many_q, many_t)):
         d1 = ck.hamming_d1_pairs(packed, packed, vt, qi, ti)
         assert torch.equal(d1, ck.hamming_d1_pairs_plain(packed, packed, vt,
@@ -424,6 +429,97 @@ def test_process_videos_batched_on_card_equals_per_video(dev):
         ref = LoopClosingSystem(cfg, max_frames=20, device=dev).process_video(
             videos[v])
         assert ref and got[v] == ref
+
+
+@pytest.mark.parametrize("splits", [1, 3, 31])
+def test_motion_support_kernel_forced_splits(dev, splits, monkeypatch):
+    """One set of 2,000 matches with the target split forced: the counts
+    add up to the plain version's at every split, the self-support -1 taken
+    once; rows with NaN points and a set with every row masked out."""
+    rng = np.random.default_rng(splits)
+    xy = rng.normal(size=(2000, 2)).astype(np.float32)
+    xy[7] = np.nan
+    flow = (0.02 + 0.01 * rng.normal(size=(2000, 2))).astype(np.float32)
+    xy, flow = torch.from_numpy(xy).to(dev), torch.from_numpy(flow).to(dev)
+    monkeypatch.setattr(ck, "_target_splits", lambda *a: splits)
+    for mask in (torch.from_numpy(rng.random(2000) > 0.1).to(dev),
+                 torch.zeros(2000, dtype=torch.bool, device=dev)):
+        got = ck.motion_support(xy, xy - flow, mask, 0.208, 0.0256)
+        assert torch.equal(got, ck.motion_support_plain(xy, xy - flow, mask,
+                                                        0.208, 0.0256))
+
+
+def test_hamming_knn2_kernel_keyframe_pair(dev):
+    """The keyframe step's single pair of 1,000 x 1,000 rows (the target
+    rows split over blocks): duplicated targets, queries equal to targets,
+    invalid rows on both sides, and the pair against an all-invalid
+    frame."""
+    rng = np.random.default_rng(1000)
+    s = (rng.integers(0, 2, (3, 1000, 256)) * 2 - 1).astype(np.int8)
+    s[1, 500:520] = s[1, 400:420]
+    s[0, :20] = s[1, 400:420]
+    v = torch.from_numpy(rng.random((3, 1000)) > 0.05).to(dev)
+    v[1, 400:420] = v[1, 500:520] = v[0, :20] = True
+    v[2] = False
+    packed = desc_ops.signed_to_packed(torch.from_numpy(s).to(dev))
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    for t in (zero + 1, zero + 2):
+        got = ck.hamming_knn2(packed, v, packed, v, zero, t)
+        ref = ck.hamming_knn2_plain(packed, v, packed, v, zero, t)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    d1, idx, d2 = (x[0].cpu() for x in ck.hamming_knn2(packed, v, packed, v,
+                                                        zero, zero + 1))
+    assert (d1[:20] == 0).all() and (d2[:20] == 0).all()
+    assert (idx[:20] == torch.arange(400, 420)).all()
+    assert torch.equal(d1 < 2 ** 30, v[0].cpu())
+
+
+@pytest.mark.parametrize("splits", [2, 7])
+def test_hamming_knn2_kernel_forced_splits(dev, splits, monkeypatch):
+    """A loop-search pair list with the target split forced: the split
+    merge keeps the lowest index on ties and d2 = d1 on duplicates."""
+    rng = np.random.default_rng(splits)
+    s = (rng.integers(0, 2, (6, 1000, 256)) * 2 - 1).astype(np.int8)
+    s[:, 700:710] = s[:, 100:110]
+    s[0, :10] = s[1, 100:110]
+    v = torch.from_numpy(rng.random((6, 1000)) > 0.05).to(dev)
+    v[:, 100:110] = v[:, 700:710] = True
+    v[0, :10] = True
+    v[3] = False
+    packed = desc_ops.signed_to_packed(torch.from_numpy(s).to(dev))
+    qidx = torch.tensor([0, 0, 2, 5, 4], dtype=torch.int32, device=dev)
+    tidx = torch.tensor([1, 3, 1, 0, 2], dtype=torch.int32, device=dev)
+    monkeypatch.setattr(ck, "_target_splits", lambda *a: splits)
+    got = ck.hamming_knn2(packed, v, packed, v, qidx, tidx)
+    ref = ck.hamming_knn2_plain(packed, v, packed, v, qidx, tidx)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    d1, idx, d2 = (t.cpu() for t in got)
+    assert (d1[0, :10] == 0).all() and (d2[0, :10] == 0).all()
+    assert (idx[0, :10] == torch.arange(100, 110)).all()
+    assert (d1[1] == 2 ** 30).all() and (idx[1] == 0).all()
+
+
+def test_hamming_knn2_kernel_split_sweep(dev, monkeypatch):
+    """The keyframe pair and a 3-pair list at every split count from 1 to
+    16 on three random stores, each launched twice in a row: the ticket of
+    every slab must be back at zero for the second launch, and no split
+    count may depend on which block merges."""
+    for seed in range(3):
+        rng = np.random.default_rng(100 + seed)
+        s = (rng.integers(0, 2, (3, 1000, 256)) * 2 - 1).astype(np.int8)
+        s[1, 600:640] = s[1, 100:140]
+        v = torch.from_numpy(rng.random((3, 1000)) > 0.1).to(dev)
+        packed = desc_ops.signed_to_packed(torch.from_numpy(s).to(dev))
+        for qi, ti in (([0], [1]), ([0, 2, 1], [1, 1, 2])):
+            qidx, tidx = (torch.tensor(x, dtype=torch.int32, device=dev)
+                          for x in (qi, ti))
+            ref = ck.hamming_knn2_plain(packed, v, packed, v, qidx, tidx)
+            for splits in range(1, 17):
+                monkeypatch.setattr(ck, "_target_splits",
+                                    lambda *a, n=splits: n)
+                for _ in range(2):
+                    got = ck.hamming_knn2(packed, v, packed, v, qidx, tidx)
+                    assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
 def test_motion_support_kernel_batched_bitwise(dev):

@@ -219,8 +219,247 @@ def test_l2_target_splits(p_cnt, n, want):
     that the 132 SMs of an H100 each get one (its blocks run one an SM),
     never below two 64-row stages a split; a pair list with a block for
     every SM is not split."""
-    splits = ck._l2_splits(p_cnt, n, n, 132)
+    splits = ck._target_splits(p_cnt * -(-n // ck._L2_QUERY_ROWS), 1, n,
+                               2 * ck._L2_STAGE_ROWS, 132)
     assert splits == want
     blocks = p_cnt * -(-n // 128)
     assert splits == 1 or (blocks * (splits - 1) < 132
                            and n // splits >= 128)
+
+
+# --------------------------------------------------------------------------
+# kernel F
+# --------------------------------------------------------------------------
+
+IDX_BITS = 20
+NO_KEY = 1 << 30                    # keys at or above: no valid target
+INVALID_COL = NO_KEY + (1 << 29)    # column key of an invalid target row
+STAGE = 512                         # target rows kernel F stages at a time
+
+
+def _bits(packed: torch.Tensor) -> np.ndarray:
+    return ck.desc_ops.packed_to_bits(packed).numpy().astype(np.int64)
+
+
+def push2(m1, m2, k):
+    """Kernel F's running top-2 of keys: m2 = min(m2, max(m1, k)), m1 =
+    min(m1, k)."""
+    return np.minimum(m1, k), np.minimum(m2, np.maximum(m1, k))
+
+
+def merge2(a, b):
+    """The top-2 of two top-2s: (min(a1, b1), min(max(a1, b1), a2, b2))."""
+    return (np.minimum(a[0], b[0]),
+            np.minimum(np.maximum(a[0], b[0]), np.minimum(a[1], b[1])))
+
+
+def knn2_keyed(packed_q, valid_q, packed_t, valid_t, qidx, tidx, splits):
+    """Kernel F's arithmetic, step by step: col_t = (popc(t) << 20) + j
+    (2^30 + 2^29 for an invalid row), the keys col_t - 2^21 popc(q & t) of
+    each lane's two columns of every 8-row tile, in the order it sweeps
+    them, its running top-2, the merge over the 4 lanes of a quad (xor 1,
+    then xor 2), popc(q) << 20 added, the merge over splits of the target
+    rows, and the decode to (d1, idx, d2). Every key is checked to fit in
+    int32."""
+    n_t = packed_t.shape[1]
+    split_len = -(-n_t // splits)
+    splits = -(-n_t // split_len)
+    outs = []
+    for qf, tf in zip(qidx.tolist(), tidx.tolist()):
+        bq, bt = _bits(packed_q[qf]), _bits(packed_t[tf])
+        acc = bq @ bt.T                                   # popc(q & t)
+        j = np.arange(n_t)
+        col = np.where(valid_t[tf].numpy(), (bt.sum(1) << IDX_BITS) + j,
+                       INVALID_COL)
+        keys = col[None, :] - acc * (2 << IDX_BITS)
+        assert keys.min() >= -2 ** 31 and keys.max() < 2 ** 31
+        pq = bq.sum(1) << IDX_BITS
+        full = np.full(bq.shape[0], NO_KEY, np.int64)
+        total = None
+        for s in range(splits):
+            t_begin = s * split_len
+            lanes = []
+            for tq in range(4):
+                m = (full, full)
+                for t0 in range(t_begin, min(n_t, t_begin + split_len), STAGE):
+                    t_end = min(n_t, t_begin + split_len, t0 + STAGE)
+                    for c in range(t0 + 2 * tq, t_end, 8):  # 2 tq, 2 tq + 1
+                        for jj in (c, c + 1):
+                            if jj < t_end:
+                                m = push2(*m, keys[:, jj])
+                lanes.append(m)
+            lanes = [merge2(lanes[i], lanes[i ^ 1]) for i in range(4)]
+            lanes = [merge2(lanes[i], lanes[i ^ 2]) for i in range(4)]
+            assert all(np.array_equal(lanes[0][h], ln[h])
+                       for ln in lanes for h in (0, 1))
+            part = (lanes[0][0] + pq, lanes[0][1] + pq)
+            assert part[1].max() < 2 ** 31
+            total = part if total is None else merge2(total, part)
+        k1, k2 = total
+        hit = valid_q[qf].numpy() & (k1 < NO_KEY)
+        outs.append((np.where(hit, k1 >> IDX_BITS, 2 ** 30),
+                     np.where(hit, k1 & ((1 << IDX_BITS) - 1), 0),
+                     np.where(hit & (k2 < NO_KEY), k2 >> IDX_BITS, 2 ** 30)))
+    return tuple(torch.from_numpy(np.stack(o).astype(np.int32))
+                 for o in zip(*outs))
+
+
+def knn2_store(rng, case: str, n: int):
+    """A 4-frame store of n rows and a 5-pair list for one edge case."""
+    signed = (rng.integers(0, 2, (4, n, 256)) * 2 - 1).astype(np.int8)
+    valid = rng.random((4, n)) < 0.9
+    if case == "ties":             # duplicated targets, queries equal them
+        signed[:, n - 40:n - 20] = signed[:, 10:30]
+        signed[0, :20] = signed[1, 10:30]
+        valid[:, 10:30] = valid[:, n - 40:n - 20] = valid[0, :20] = True
+    if case == "invalid_query":
+        valid[0, ::3] = False
+    if case == "empty_frame":
+        valid[2] = False
+    if case == "single_valid":     # one valid target row: d2 = 2^30
+        valid[3] = False
+        valid[3, n // 2] = True
+    if case == "near_ties":        # distances 0, 1, 1, 2 from the queries
+        signed[1, 5] = signed[0, 0]
+        for r, flips in ((n - 3, 1), (7, 1), (n - 1, 2)):
+            signed[1, r] = signed[0, 0]
+            signed[1, r, :flips] *= -1
+        valid[0, 0] = valid[1, [5, 7, n - 3, n - 1]] = True
+    packed = ck.desc_ops.signed_to_packed(torch.from_numpy(signed))
+    qidx = torch.tensor([0, 0, 1, 3, 2], dtype=torch.int32)
+    tidx = torch.tensor([1, 2, 3, 0, 1], dtype=torch.int32)
+    return packed, torch.from_numpy(valid), qidx, tidx
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("case,n", [("random", 300), ("ties", 1100),
+                                    ("invalid_query", 300),
+                                    ("empty_frame", 300),
+                                    ("single_valid", 300),
+                                    ("near_ties", 600)])
+def test_knn2_keyed_epilogue_equals_plain(case, n, splits):
+    """Kernel F's keyed top-2, lane by lane, quad and split merges, equals
+    hamming_knn2_plain: forced ties resolve to the lowest row with d2 = d1,
+    invalid query rows give (2^30, 0, 2^30), an all-invalid target frame
+    2^30, a frame with one valid row d2 = 2^30; 1,100 rows cross a stage."""
+    rng = np.random.default_rng(n + len(case))
+    packed, valid, qidx, tidx = knn2_store(rng, case, n)
+    ref = ck.hamming_knn2_plain(packed, valid, packed, valid, qidx, tidx)
+    got = knn2_keyed(packed, valid, packed, valid, qidx, tidx, splits)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    d1, idx, d2 = ref
+    if case == "ties":
+        rows = valid[0, :20]
+        assert (d1[0, :20][rows] == 0).all() and (d2[0, :20][rows] == 0).all()
+        assert (idx[0, :20][rows] == torch.arange(10, 30)[rows]).all()
+    if case == "empty_frame":
+        assert (d1[1] == 2 ** 30).all() and (d2[1] == 2 ** 30).all()
+    if case == "single_valid":
+        assert (d2[2] == 2 ** 30).all()
+        assert torch.equal(d1[2] < 2 ** 30, valid[1])
+    if case == "near_ties":
+        assert (int(d1[0, 0]), int(idx[0, 0]), int(d2[0, 0])) == (0, 5, 1)
+
+
+def test_knn2_keys_order_lexicographic():
+    """A key orders (distance, row) lexicographically for every distance
+    -256..256 a key can carry before popc(q) is added, and decodes back."""
+    d = np.arange(-256, 257)[:, None]
+    j = np.array([0, 1, 2 ** 19, 2 ** 20 - 1])[None, :]
+    keys = (d << IDX_BITS) + j
+    assert np.all(np.diff(keys.ravel()) > 0)
+    assert np.array_equal(keys >> IDX_BITS, np.broadcast_to(d, keys.shape))
+    assert np.array_equal(keys & ((1 << IDX_BITS) - 1),
+                          np.broadcast_to(j, keys.shape))
+    # an invalid column's key stays at or above NO_KEY at any product
+    assert INVALID_COL - 256 * (2 << IDX_BITS) >= NO_KEY
+
+
+# --------------------------------------------------------------------------
+# kernel E
+# --------------------------------------------------------------------------
+
+def support_split(xy_q, xy_t, mask, radius, tau, splits):
+    """Kernel E's split: invalid target rows staged with x = NaN, each
+    split's partial count over its target rows (in stages of 512), the -1
+    added by the one split whose range holds the row itself, nothing added
+    for an invalid row, the partials summed as integers."""
+    q = torch.cat([xy_q, xy_q - xy_t], dim=-1)
+    staged = q.clone()
+    staged[..., 0] = torch.where(mask, q[..., 0], float("nan"))
+    r2, t2 = ck._square_f32(radius), ck._square_f32(tau)
+    n = q.shape[-2]
+    split_len = -(-n // splits)
+    rows = torch.arange(n)
+    out = torch.zeros(mask.shape, dtype=torch.int32)
+    for t_begin in range(0, n, split_len):
+        cnt = torch.zeros(mask.shape, dtype=torch.int32)
+        for t0 in range(t_begin, min(n, t_begin + split_len), 512):
+            t = staged[..., t0:min(n, t_begin + split_len, t0 + 512), :]
+
+            def sq(a, b):
+                ex = a[..., :, None, 0] - b[..., None, :, 0]
+                ey = a[..., :, None, 1] - b[..., None, :, 1]
+                return ex * ex + ey * ey
+
+            ok = (sq(q[..., :2], t[..., :2]) < r2) & (sq(q[..., 2:],
+                                                         t[..., 2:]) < t2)
+            cnt += torch.sum(ok, dim=-1, dtype=torch.int32)
+        own = ((rows >= t_begin) & (rows < t_begin + split_len)).int()
+        out += torch.where(mask, cnt - own, 0).int()
+    return out
+
+
+@pytest.mark.parametrize("splits", [1, 4, 31])
+@pytest.mark.parametrize("batch,n", [(1, 2000), (1, 1531), (3, 1000)])
+def test_support_split_equals_plain(batch, n, splits):
+    """Partial counts over target splits of several sizes (n no multiple of
+    a split, a stage or a slab), summed, with one self-subtraction, equal
+    motion_support_plain bitwise; NaN points and masked rows included."""
+    rng = np.random.default_rng(n + splits)
+    xy = rng.uniform(-0.6, 0.6, (batch, n, 2)).astype(np.float32)
+    xy[:, 3] = np.nan
+    flow = (0.02 + 0.002 * rng.normal(size=(batch, n, 2))).astype(np.float32)
+    flow[:, : n // 3] = rng.uniform(-0.3, 0.3, (batch, n // 3, 2))
+    mask = torch.from_numpy(rng.random((batch, n)) < 0.8)
+    mask[:, 3] = True              # a NaN point supports nothing, not itself
+    xy_q = torch.from_numpy(xy)
+    xy_t = xy_q - torch.from_numpy(flow.astype(np.float32))
+    args = (xy_q, xy_t, mask, 0.06, 0.0125)
+    ref = ck.motion_support_plain(*args)
+    assert torch.equal(support_split(*args, splits), ref)
+    assert int(ref.max()) > 0 and int(ref.min()) == -1
+
+
+@pytest.mark.parametrize("batch,n,want", [(1, 2000, 62), (1, 4000, 66),
+                                          (1, 1000, 31), (32, 1000, 9),
+                                          (32, 1536, 6), (1, 100, 3),
+                                          (200, 2000, 1)])
+def test_motion_support_splits(batch, n, want):
+    """Kernel E splits a set's target matches over blocks until the 132 SMs
+    of an H100 have four blocks of 128 threads each, never below 32 matches
+    a split; a batch that fills the card alone is not split."""
+    splits = ck._target_splits(batch * -(-n // ck._MS_SLAB),
+                               ck._MS_BLOCKS_PER_SM, n, ck._MS_MIN_SPLIT, 132)
+    assert splits == want
+    blocks = batch * -(-n // 512)
+    assert splits == 1 or (blocks * (splits - 1) < 4 * 132
+                           and n // splits >= 32)
+
+
+@pytest.mark.parametrize("p_cnt,n,want", [(1, 1000, 15), (300, 1000, 1),
+                                          (1176, 1000, 1), (3, 1100, 17),
+                                          (1, 50, 1), (2, 4000, 9)])
+def test_knn2_target_splits(p_cnt, n, want):
+    """Kernel F splits the target rows of a short pair list over blocks
+    until every SM of an H100 has two blocks of 256 query rows, never below
+    64 rows a split (the keyframe step's one pair: 4 blocks x 15 splits);
+    the loop search's pair list is not split."""
+    splits = ck._target_splits(p_cnt * -(-n // ck._KNN2_SLAB),
+                               ck._KNN2_BLOCKS_PER_SM, n,
+                               ck._KNN2_MIN_SPLIT_ROWS, 132)
+    assert splits == want
+    blocks = p_cnt * -(-n // 256)
+    assert splits == 1 or (blocks * (splits - 1) < 2 * 132
+                           and n // splits >= 64)

@@ -1,5 +1,5 @@
-"""Time the port's end-to-end paths, and kernels A and G at their main-path
-shapes, for the package of one source tree, so that two trees can be
+"""Time the port's end-to-end paths, and kernels A, E, F and G at their
+main-path shapes, for the package of one source tree, so that two trees can be
 compared in turns on one card (parent, change, change, parent):
 
     python3 tools/ab_paths.py --root DIR --cache CACHE_DIR [--paths a,b]
@@ -26,11 +26,17 @@ per path, every repeat:
   backend);
 * kernel A on 8 frames at the four 1080p levels, summed, and kernel G on
   the SIFT keyframe store at the keyframe step's pair and the loop
-  search's pairs (CUDA-event ms).
+  search's pairs (``kernels``); kernel E at the shapes of
+  ``KERNEL_E_SHAPES`` and kernel F on ``chip_smoke.knn2_store`` at the
+  keyframe step's pair and the loop search's 300 pairs (``kernels_ef``,
+  no frames); CUDA-event ms and device ms (``chip_smoke.device_ms``);
+  kernel F at the keyframe step's pair alone, CUDA-event ms of 50 calls
+  five times over and device ms (``kernel_f_step``, no frames).
 
 ``--paths`` picks some of ``video, stream, config2, multivideo, sfm_orb,
-sfm_sift, kernels`` (all by default), to repeat a comparison where it is
-noisy.
+sfm_sift, kernels, kernels_ef, kernel_f_step`` (all by default), to
+repeat a comparison
+where it is noisy.
 """
 
 from __future__ import annotations
@@ -53,9 +59,14 @@ SPECS = {"video": (96, 1080, 1920, 300, 0), "sfm": (96, 540, 960, 400, 0),
 # the frame sets each path reads
 PATHS = {"video": ("video",), "stream": ("video",), "config2": ("c2",),
          "multivideo": ("mv",), "sfm_orb": ("sfm",), "sfm_sift": ("sift",),
-         "kernels": ("video", "sift")}
+         "kernels": ("video", "sift"), "kernels_ef": (),
+         "kernel_f_step": ()}
 MV_VIDEOS, MV_SPEC = 6, (48, 540, 960, 300)
 SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+# kernel E's (batch, matches): the live set, batch-1 sets (ORB and SIFT
+# keyframe steps, twice the live size), the ORB and SIFT verification chunks
+KERNEL_E_SHAPES = ((1, 2000), (1, 1000), (1, 1536), (1, 4000), (32, 1000),
+                   (32, 1536))
 
 
 def frames(smoke, cache: Path, keys) -> dict:
@@ -216,6 +227,11 @@ def main() -> int:
         del x, pipe, state
         torch.cuda.empty_cache()
 
+    if "kernels_ef" in paths:
+        kernels_ef(smoke, ck, dev, rec)
+    if "kernel_f_step" in paths:
+        kernel_f_step(smoke, ck, dev, rec)
+
     # kernels A and G at their shapes
     if "kernels" not in paths:
         print(json.dumps(rec), flush=True)
@@ -238,6 +254,55 @@ def main() -> int:
         lambda: ck.l2_knn2(desc, vd, desc, vd, qi[-1:], ti[-1:]), 50)
     print(json.dumps(rec), flush=True)
     return 0
+
+
+def kernels_ef(smoke, ck, dev, rec: dict) -> None:
+    """Kernels E and F at their main paths' shapes, into ``rec``."""
+    import torch
+
+    # kernel E at the live set, batch-1 sets and the verification chunks
+    rng = np.random.default_rng(1)
+    radii = smoke.sfm_support_radii()
+    for batch, n in KERNEL_E_SHAPES:
+        args = smoke.support_set(rng, batch, n, dev, *radii)[0]
+        rec[f"kernel_e_{batch}x{n}_ms"] = smoke.cuda_ms(
+            lambda: ck.motion_support(*args), 50)
+        rec[f"kernel_e_{batch}x{n}_device_ms"] = smoke.device_ms(
+            lambda: ck.motion_support(*args), 50)
+    # kernel F at the keyframe step's pair and the loop search's 300 pairs
+    packed, vt, (one_q, one_t), (qi, ti) = knn2_inputs(smoke, dev)
+    for name, (q, t) in (("step", (one_q, one_t)), ("loop", (qi, ti))):
+        rec[f"kernel_f_{name}_ms"] = smoke.cuda_ms(
+            lambda: ck.hamming_knn2(packed, vt, packed, vt, q, t), 50)
+        rec[f"kernel_f_{name}_device_ms"] = smoke.device_ms(
+            lambda: ck.hamming_knn2(packed, vt, packed, vt, q, t), 50)
+
+
+
+def knn2_inputs(smoke, dev):
+    """``chip_smoke.knn2_store``'s store and validity, the keyframe step's
+    pair and the loop search's 300 pairs, as kernel F takes them."""
+    import torch
+
+    packed, vt, _, pairs = smoke.knn2_store(np.random.default_rng(2), dev)
+    loop = tuple(t.contiguous() for t in torch.tensor(
+        pairs, dtype=torch.int32, device=dev).T)
+    k = smoke.SFM_STORE
+    step = tuple(torch.tensor([f], dtype=torch.int32, device=dev)
+                 for f in (k - 1, k - 2))
+    return packed, vt, step, loop
+
+
+def kernel_f_step(smoke, ck, dev, rec: dict) -> None:
+    """Kernel F at the keyframe step's one pair, into ``rec``: CUDA-event ms
+    a call over 50 back-to-back calls, five times, and device ms."""
+    packed, vt, (q, t), _ = knn2_inputs(smoke, dev)
+
+    def call():
+        return ck.hamming_knn2(packed, vt, packed, vt, q, t)
+
+    rec["kernel_f_step_ms_runs"] = [smoke.cuda_ms(call, 50) for _ in range(5)]
+    rec["kernel_f_step_device_ms"] = smoke.device_ms(call, 50)
 
 
 if __name__ == "__main__":
