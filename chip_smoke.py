@@ -64,8 +64,8 @@ each printed with its result and seconds on its own line:
    and the phase would not reach the loop search;
 10. kernels H, B and G at the SIFT path's shapes: the octave kernel H
     against its plain version in both modes (Gaussian stack and gated
-    response; gauss only) on octave 0 of 8 1080p frames and on a small
-    octave (1080p's octave 3), bitwise; kernel B on that octave 0's
+    response; gauss only) on octaves 0-3 of 8 1080p frames, bitwise,
+    and its time at each octave; kernel B on that octave 0's
     gradient maps at its keypoint slots (40x40 windows, center 19),
     bitwise; the squared-L2 top-2 kernel G on the keyframe store that
     ``SfMPipeline._frontend`` builds from the 96 frames (valid rows first,
@@ -280,8 +280,7 @@ PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12, "b1": 10.1e15,
 # and 4 subtracts
 FAST_MINMAX_PER_PX, FAST_F32_PER_PX = 17, 42
 FAST_MINMAX_PER_PASS, FAST_F32_PER_PASS = 160, 4
-GATE_OPS_PER_PX = 110   # kernel H's gates per response pixel: 27 DoG
-                        # differences, 52 min/max, the edge test
+SIFT_OCTAVES = 4        # kernel H's octaves of a 1080p chunk checked
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -357,8 +356,8 @@ KERNEL_NAMES = {"fast_score_nms_blur_kernel": "fast_score_nms_blur",
                 "motion_support_kernel": "motion_support",
                 "l2_knn2_kernel": "l2_knn2",
                 "merge_splits_kernel": "l2_knn2",
-                "blur_level_kernel": "gauss_stack_resp",
-                "gates_kernel": "gauss_stack_resp"}
+                "blur_window_kernel": "gauss_stack_resp",
+                "dog_gates_kernel": "gauss_stack_resp"}
 def kernel_device_ms(prof, path: str, device_ms: dict) -> None:
     """Each kernel's summed device time (ms) in a profile of one run of a
     main path, by wrapper name: kept in ``device_ms[path]`` and printed."""
@@ -1442,9 +1441,45 @@ def bmm_cross_ms(desc, qidx, tidx, chunk: int = 64) -> float:
     return cuda_ms(run, 3)
 
 
+def sift_octaves(imgs, count: int) -> list:
+    """The inputs of the first ``count`` octaves of ``[B, H, W]`` frames as
+    the SIFT path makes them: each half the last, bilinear."""
+    from slam_loop_closing_tpu_torch.ops.image import resize_bilinear
+
+    out = [imgs.contiguous()]
+    for _ in range(count - 1):
+        h, w = out[-1].shape[-2:]
+        out.append(resize_bilinear(out[-1], h // 2, w // 2).contiguous())
+    return out
+
+
+def gauss_stack_bound(sig, s: int, b: int, h: int, w: int,
+                      emit_resp: bool) -> dict:
+    """Kernel H's bound for ``b`` frames of ``h x w``, by pipe. The chain:
+    a tap is one multiply and one add on the FMA pipe (no FMA, for the plain
+    order), the first multiply of a pass has no add: 4 x taps - 2 a level
+    and pixel. The gates add S+2 DoG subtracts on that pipe and, on the
+    min/max pipe, per DoG plane the row maxima of three (2 maxima and 2
+    minima for each of 4 rows, shared by 2 output rows: 8), the pair of
+    rows above and below (2) and the full 3x3 (2), per centre plane its
+    left/right pair (2) and the centre-excluded 3x3 (2), and per response
+    plane the merge of its three (4): 12 (S+2) + 8 S a pixel. Bytes: the
+    frames read once, the levels and response planes written once."""
+    from slam_loop_closing_tpu_torch.ops import sift
+
+    px = b * h * w
+    taps = sum(len(t) for t in sift.chain_taps(sig))
+    ffma = px * (4 * taps - 2 * len(sig))
+    if not emit_resp:
+        return bound_pipes(4 * px * (1 + len(sig)), {"ffma": ffma})
+    return bound_pipes(4 * px * (1 + len(sig) + s),
+                       {"ffma": ffma + px * (s + 2),
+                        "fmnmx": px * (12 * (s + 2) + 8 * s)})
+
+
 def check_sift_kernels(frames: np.ndarray, dev) -> dict:
-    """Kernel H on octave 0 of a chunk of 1080p frames and on a small
-    octave, both modes, bitwise; kernel B on that octave's gradient maps
+    """Kernel H on octaves 0-3 of a chunk of 1080p frames, both modes,
+    bitwise, and its time at each; kernel B on that octave's gradient maps
     at its keypoints (the descriptor's 40x40 windows), bitwise; kernel G on
     the keyframe store the pipeline's own front-end builds from all the
     frames (valid rows first, cut to the count bucket) at the keyframe
@@ -1457,8 +1492,7 @@ def check_sift_kernels(frames: np.ndarray, dev) -> dict:
     from slam_loop_closing_tpu_torch.models import sfm
     from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
     from slam_loop_closing_tpu_torch.ops import sift
-    from slam_loop_closing_tpu_torch.ops.image import (resize_bilinear,
-                                                       ship_frames)
+    from slam_loop_closing_tpu_torch.ops.image import ship_frames
 
     records = {}
     t0 = time.perf_counter()
@@ -1467,13 +1501,9 @@ def check_sift_kernels(frames: np.ndarray, dev) -> dict:
     sig = sift._chain_sigmas(s, cfg.sigma0)
     args = (s, sift._contrast_threshold(cfg), cfg.edge_threshold)
     imgs = ship_frames(frames[:cfg.batch_chunk], dev)
-    small = imgs
-    for _ in range(3):
-        small = resize_bilinear(small, small.shape[-2] // 2,
-                                small.shape[-1] // 2)
-    small = small.contiguous()
-    extrema = []
-    for x in (imgs, small):
+    octaves = sift_octaves(imgs, SIFT_OCTAVES)
+    extrema, lines = [], []
+    for o, x in enumerate(octaves):
         for emit in (True, False):
             got = ck.gauss_stack_resp(x, sig, *args, emit_resp=emit)
             ref = ck.gauss_stack_resp_plain(x, sig, *args, emit_resp=emit)
@@ -1483,7 +1513,13 @@ def check_sift_kernels(frames: np.ndarray, dev) -> dict:
                                      f" at {tuple(x.shape)}, emit_resp={emit}")
             if emit:
                 extrema.append(int((got[1] > 0).sum()))
-    del got, ref
+        del got, ref
+        if o == 0:
+            continue
+        t = [cuda_ms(lambda: ck.gauss_stack_resp(x, sig, *args,
+                                                 emit_resp=emit), 20)
+             for emit in (True, False)]
+        lines.append(f"octave {o} {tuple(x.shape)}: {t[0]:.4f} / {t[1]:.4f}")
     ms = cuda_ms(lambda: ck.gauss_stack_resp(imgs, sig, *args), 10)
     plain_ms = cuda_ms(lambda: ck.gauss_stack_resp_plain(imgs, sig, *args), 2)
     gauss_ms = cuda_ms(lambda: ck.gauss_stack_resp(imgs, sig, s,
@@ -1491,22 +1527,21 @@ def check_sift_kernels(frames: np.ndarray, dev) -> dict:
     gauss_plain_ms = cuda_ms(lambda: ck.gauss_stack_resp_plain(
         imgs, sig, s, emit_resp=False), 2)
     b, h, w = imgs.shape
-    taps = sum(len(t) for t in sift.chain_taps(sig))
-    # the frames read once, the levels and the response planes written once
     records["gauss_stack_resp"] = dict(
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-        **bound(4 * b * h * w * (1 + len(sig) + s),
-                b * h * w * (4 * taps + s * GATE_OPS_PER_PX), "f32"))
-    gauss_bound = bound(4 * b * h * w * (1 + len(sig)), 4 * b * h * w * taps,
-                        "f32")
+        **gauss_stack_bound(sig, s, b, h, w, True))
+    gauss_bound = gauss_stack_bound(sig, s, b, h, w, False)
     phase("kernel H gauss_stack_resp", t0,
-          f"{b} x {h}x{w} (octave 0) and {tuple(small.shape)} (octave 3), "
-          f"both modes: bitwise ({extrema} extrema); octave 0, gauss + "
-          f"response: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; gauss "
-          f"only: kernel {gauss_ms:.3f} ms, plain {gauss_plain_ms:.3f} ms, "
-          f"bound {gauss_bound['bound_ms']:.4f} ms "
-          f"({gauss_bound['bound_by']})")
-    del small
+          f"{b} x {h}x{w}, octaves 0-{len(octaves) - 1}, both modes: bitwise "
+          f"({extrema} extrema); octave 0, gauss + response: kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{records['gauss_stack_resp']['bound_ms']:.4f} ms "
+          f"({records['gauss_stack_resp']['bound_by']}); gauss only: kernel "
+          f"{gauss_ms:.3f} ms, plain {gauss_plain_ms:.3f} ms, bound "
+          f"{gauss_bound['bound_ms']:.4f} ms ({gauss_bound['bound_by']}); "
+          f"kernel ms, gauss + response / gauss only, "
+          + "; ".join(lines))
+    del octaves, x
     torch.cuda.empty_cache()
 
     # B at the SIFT path's shape: the 40x40 windows of octave 0's gradient

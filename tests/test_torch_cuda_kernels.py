@@ -673,11 +673,14 @@ def test_l2_knn2_kernel(dev, n, pairs, integer):
 
 @pytest.mark.parametrize("emit_resp", [True, False])
 @pytest.mark.parametrize("b,h,w", [(2, 1080, 1920), (3, 135, 240),
-                                   (1, 61, 77)])
+                                   (1, 61, 77), (8, 540, 960),
+                                   (8, 270, 480), (8, 135, 240)])
 def test_gauss_stack_resp_kernel_bitwise(dev, b, h, w, emit_resp):
     """Kernel H against its plain version on blob texture (coarse noise
-    upsampled): a 1080p octave 0, a small octave (1080p's octave 3) and a
-    ragged one; the Gaussian stack and the gated response bitwise."""
+    upsampled): a 1080p octave 0, a small octave (1080p's octave 3), a
+    ragged one, and octaves 1-3 of a chunk of 8 1080p frames (each its own
+    blur tile height); the Gaussian stack and the gated response bitwise,
+    one launch count a call."""
     rng = np.random.default_rng(h)
     coarse = torch.from_numpy(
         rng.random((b, h // 8 + 1, w // 8 + 1)).astype(np.float32)).to(dev)

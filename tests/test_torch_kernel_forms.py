@@ -3,7 +3,10 @@ and G (squared-L2 top-2), modelled in torch on the CPU, where no kernel
 runs: A's arc extrema by doubling and its compass pre-test against the
 plain score map, bitwise; G's 3xTF32 split of the cross term (exact on
 integer-valued descriptors, within 1e-6 of float64 on SIFT descriptors)
-and the per-frame extents it reads from the device."""
+and the per-frame extents it reads from the device. Likewise E's and F's
+splits and keys, and kernel H's tiles: the blur level by level in tiles
+with a sliding window, and the gates in tiles of DoG planes formed once,
+bitwise against the plain chain and gates."""
 
 import numpy as np
 import pytest
@@ -12,6 +15,7 @@ import torch
 from slam_loop_closing_tpu_torch.config import SiftConfig
 from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
 from slam_loop_closing_tpu_torch.ops import fast as tfast
+from slam_loop_closing_tpu_torch.ops import image as timage
 from slam_loop_closing_tpu_torch.ops import matching as tmatch
 from slam_loop_closing_tpu_torch.ops import sift as tsift
 from slam_loop_closing_tpu_torch.utils.synth_video import orbit_sequence
@@ -463,3 +467,162 @@ def test_knn2_target_splits(p_cnt, n, want):
     blocks = p_cnt * -(-n // 256)
     assert splits == 1 or (blocks * (splits - 1) < 2 * 132
                            and n // splits >= 64)
+
+
+# --------------------------------------------------------------------------
+# kernel H
+# --------------------------------------------------------------------------
+
+def reflect_clamped(i: int, n: int) -> int:
+    """The kernel's reflect index: numpy's "reflect", clamped into the
+    frame for tile positions past a ragged edge."""
+    i = abs(i)
+    i = 2 * (n - 1) - i if i >= n else i
+    return min(max(i, 0), n - 1)
+
+
+def blur_tiled(imgs: torch.Tensor, taps, cols: int, rows: int):
+    """Kernel H's blur of one level, tile by tile: per tile the columns of
+    the tile and its halo (reflected at the frame edge), a window of 2R+1
+    rows sliding down them (the vertical pass, one row in a step), then the
+    horizontal pass over the vertical results; the plain tap order."""
+    r = (len(taps) - 1) // 2
+    b, h, w = imgs.shape
+    out = torch.full_like(imgs, float("nan"))
+    for y0 in range(0, h, rows):
+        for x0 in range(0, w, cols):
+            xs = [reflect_clamped(x0 - r + c, w) for c in range(cols + 2 * r)]
+            col = imgs[:, :, xs]
+            win = [col[:, reflect_clamped(y0 - r + k, h)]
+                   for k in range(2 * r)]
+            vert = []
+            for y in range(y0, min(y0 + rows, h)):
+                win = win[-2 * r:] + [col[:, reflect_clamped(y + r, h)]]
+                v = taps[0] * win[0]
+                for j in range(1, 2 * r + 1):
+                    v = v + taps[j] * win[j]
+                vert.append(v)
+            vert = torch.stack(vert, dim=1)
+            n = min(cols, w - x0)
+            o = taps[0] * vert[..., 0:n]
+            for j in range(1, 2 * r + 1):
+                o = o + taps[j] * vert[..., j:j + n]
+            out[:, y0:y0 + vert.shape[1], x0:x0 + n] = o
+    return out
+
+
+def blob_frames(b: int, h: int, w: int, seed: int) -> torch.Tensor:
+    """[b, h, w] float32 blob texture: coarse noise upsampled."""
+    rng = np.random.default_rng(seed)
+    coarse = torch.from_numpy(
+        rng.random((b, h // 6 + 2, w // 6 + 2)).astype(np.float32))
+    return timage.resize_bilinear(coarse, h, w)
+
+
+@pytest.mark.parametrize("radius", range(1, 10))
+def test_blur_window_tiles_equal_plain(radius):
+    """Each radius of the blur in tiles of 128 columns and 16 rows, ragged
+    in both directions, against image.gaussian_blur, bitwise."""
+    imgs = blob_frames(2, 37, 150, radius)
+    sigma = max(0.5, radius / 3.0)
+    taps = [float(v) for v in timage.gaussian_kernel1d(sigma, radius)]
+    assert torch.equal(blur_tiled(imgs, taps, 128, 16),
+                       timage.gaussian_blur(imgs, sigma, radius))
+
+
+@pytest.mark.parametrize("rows", [64, 16])
+def test_blur_window_reflects_both_sides(rows):
+    """A frame narrower and shorter than one tile with its halo at R = 9:
+    the tile's halo reflects at both edges of the frame in both passes, and
+    the chain of levels (each reflecting its own input) equals the plain
+    chain of the octave, bitwise."""
+    imgs = blob_frames(2, 11, 12, rows)
+    sig = tsift._chain_sigmas(3, 1.6)
+    taps = tsift.chain_taps(sig)
+    assert max(len(t) for t in taps) == 19
+    levels = [blur_tiled(imgs, taps[0], 128, rows)]
+    for t in taps[1:]:
+        levels.append(blur_tiled(levels[-1], t, 128, rows))
+    assert torch.equal(torch.stack(levels, dim=-3),
+                       tsift._gaussian_chain(imgs, sig))
+
+
+def gates_tiled(gauss: torch.Tensor, s: int, thr: float, edge_r: float,
+                border: int, cols: int, rows: int) -> torch.Tensor:
+    """Kernel H's gates, tile by tile: the L Gaussian planes over the tile
+    and a 2-pixel halo (indices clamped into the frame), the S+2 DoG planes
+    formed once; per plane the row maxima (minima) of three, the pair of
+    rows above and below, the full 3x3 and, for a centre plane, the 3x3
+    without its centre, each formed once; the three merged per response
+    plane; then the contrast gate, the Hessian on the tile's DoG plane and
+    the border gate."""
+    b, _, h, w = gauss.shape
+    edge_rhs = float(np.float32((edge_r + 1.0) ** 2))
+    mx, mn = torch.maximum, torch.minimum
+    out = torch.full((b, s, h, w), float("nan"))
+    for y0 in range(0, h, rows):
+        for x0 in range(0, w, cols):
+            ys = torch.arange(y0 - 2, y0 + rows + 2).clamp(0, h - 1)
+            xs = torch.arange(x0 - 2, x0 + cols + 2).clamp(0, w - 1)
+            g = gauss[:, :, ys][:, :, :, xs]
+            dog = g[:, 1:] - g[:, :-1]              # [b, S+2, rows+4, cols+4]
+            left = dog[..., 1:cols + 1]
+            mid = dog[..., 2:cols + 2]
+            right = dog[..., 3:cols + 3]
+            rmax, rmin = mx(mx(left, mid), right), mn(mn(left, mid), right)
+            amax = mx(rmax[..., 1:rows + 1, :], rmax[..., 3:rows + 3, :])
+            amin = mn(rmin[..., 1:rows + 1, :], rmin[..., 3:rows + 3, :])
+            fmax = mx(amax, rmax[..., 2:rows + 2, :])
+            fmin = mn(amin, rmin[..., 2:rows + 2, :])
+            emax = mx(amax, mx(left, right)[..., 2:rows + 2, :])
+            emin = mn(amin, mn(left, right)[..., 2:rows + 2, :])
+            yy = torch.arange(y0, y0 + rows)[:, None]
+            xx = torch.arange(x0, x0 + cols)[None, :]
+            inside = ((yy >= border) & (yy < h - border) & (xx >= border)
+                      & (xx < w - border))
+            for j in range(s):
+                nmax = mx(mx(fmax[:, j], emax[:, j + 1]), fmax[:, j + 2])
+                nmin = mn(mn(fmin[:, j], emin[:, j + 1]), fmin[:, j + 2])
+                d = dog[:, j + 1]
+                v = mid[:, j + 1, 2:rows + 2]
+
+                def at(dy, dx):
+                    return d[:, 2 + dy:rows + 2 + dy, 2 + dx:cols + 2 + dx]
+
+                def half(a, c):
+                    return (a - c) * 0.5
+
+                gxx = half(half(at(0, 2), v), half(v, at(0, -2)))
+                gyy = half(half(at(2, 0), v), half(v, at(-2, 0)))
+                gxy = half(half(at(1, 1), at(1, -1)),
+                           half(at(-1, 1), at(-1, -1)))
+                tr = gxx + gyy
+                det = gxx * gyy - gxy * gxy
+                ok = (inside & ((v > nmax) | (v < nmin)) & (v.abs() >= thr)
+                      & (det > 0) & (tr * tr * edge_r < edge_rhs * det))
+                tile = torch.where(ok, v.abs(), 0.0)
+                nh, nw = min(rows, h - y0), min(cols, w - x0)
+                out[:, j, y0:y0 + nh, x0:x0 + nw] = tile[:, :nh, :nw]
+    return out
+
+
+@pytest.mark.parametrize("s,h,w,cols,rows,border", [
+    (3, 61, 77, 32, 16, 8),     # ragged, the kernel's tile
+    (2, 61, 77, 32, 16, 8),
+    (3, 40, 52, 8, 4, 2),       # tiles across the border band, border 2
+    (2, 37, 45, 1, 3, 2),       # a tile narrower than its halo
+    (3, 33, 29, 5, 1, 3),       # a tile shorter than its halo
+    (3, 48, 128, 64, 16, 8)])   # tiles that divide the frame (the
+                                # kernel's first form)
+def test_gates_tiles_equal_plain(s, h, w, cols, rows, border):
+    """The gates in tiles of DoG planes formed once, with the extremum from
+    per-plane row maxima shared by the response planes above and below,
+    against sift._gates on a real octave's Gaussian stack, bitwise, with
+    extrema that pass every gate."""
+    imgs = blob_frames(2, h, w, h + w)
+    gauss = tsift._gaussian_chain(imgs, tsift._chain_sigmas(s, 1.6))
+    thr = float(np.float32(0.01 / s))
+    ref = tsift._gates(gauss, s, thr, 10.0, border)
+    assert int((ref > 0).sum()) > 0
+    assert torch.equal(gates_tiled(gauss, s, thr, 10.0, border, cols, rows),
+                       ref)

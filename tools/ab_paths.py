@@ -1,4 +1,4 @@
-"""Time the port's end-to-end paths, and kernels A, E, F and G at their
+"""Time the port's end-to-end paths, and kernels A, E, F, G and H at their
 main-path shapes, for the package of one source tree, so that two trees can be
 compared in turns on one card (parent, change, change, parent):
 
@@ -23,7 +23,8 @@ per path, every repeat:
 * ``SfMPipeline.run`` resident, ORB (96 x 540x960) and SIFT (96 x 1080p),
   no OBJ (s, 2 runs each after a warm-up), then one run stage by stage,
   each stage synchronized (s: front-end, keyframe pass, find_loop,
-  backend);
+  backend); for SIFT also one run under the profiler: the device ms of
+  kernel H's kernels and of all kernels;
 * kernel A on 8 frames at the four 1080p levels, summed, and kernel G on
   the SIFT keyframe store at the keyframe step's pair and the loop
   search's pairs (``kernels``); kernel E at the shapes of
@@ -31,10 +32,12 @@ per path, every repeat:
   keyframe step's pair and the loop search's 300 pairs (``kernels_ef``,
   no frames); CUDA-event ms and device ms (``chip_smoke.device_ms``);
   kernel F at the keyframe step's pair alone, CUDA-event ms of 50 calls
-  five times over and device ms (``kernel_f_step``, no frames).
+  five times over and device ms (``kernel_f_step``, no frames); kernel H
+  on octaves 0-3 of the first 8 SIFT frames, both modes, CUDA-event ms
+  and device ms (``kernel_h``).
 
 ``--paths`` picks some of ``video, stream, config2, multivideo, sfm_orb,
-sfm_sift, kernels, kernels_ef, kernel_f_step`` (all by default), to
+sfm_sift, kernels, kernels_ef, kernel_f_step, kernel_h`` (all by default), to
 repeat a comparison
 where it is noisy.
 """
@@ -60,7 +63,9 @@ SPECS = {"video": (96, 1080, 1920, 300, 0), "sfm": (96, 540, 960, 400, 0),
 PATHS = {"video": ("video",), "stream": ("video",), "config2": ("c2",),
          "multivideo": ("mv",), "sfm_orb": ("sfm",), "sfm_sift": ("sift",),
          "kernels": ("video", "sift"), "kernels_ef": (),
-         "kernel_f_step": ()}
+         "kernel_f_step": (), "kernel_h": ("sift",)}
+# kernel H's kernels by the name the profiler reports, in either tree
+H_KERNELS = ("blur_level_kernel", "blur_window_kernel", "gates_kernel")
 MV_VIDEOS, MV_SPEC = 6, (48, 540, 960, 300)
 SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
 # kernel E's (batch, matches): the live set, batch-1 sets (ORB and SIFT
@@ -224,6 +229,14 @@ def main() -> int:
         rec[f"{name}_stages_s"] = {"front_end": t_fe,
                                    "keyframe_pass": t_kf - t_fe,
                                    "find_loop": t_loop, "backend": t_be}
+        if name == "sfm_sift":
+            prof = smoke.profiled(lambda: build().run(x, write_obj=False))[1]
+            events = prof.key_averages()
+            busy = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3
+                    for e in events}
+            rec["sfm_sift_h_device_ms"] = sum(
+                t for k, t in busy.items() if any(n in k for n in H_KERNELS))
+            rec["sfm_sift_device_ms"] = sum(busy.values())
         del x, pipe, state
         torch.cuda.empty_cache()
 
@@ -231,6 +244,8 @@ def main() -> int:
         kernels_ef(smoke, ck, dev, rec)
     if "kernel_f_step" in paths:
         kernel_f_step(smoke, ck, dev, rec)
+    if "kernel_h" in paths:
+        kernel_h(smoke, ck, fr["sift"], dev, rec)
 
     # kernels A and G at their shapes
     if "kernels" not in paths:
@@ -291,6 +306,30 @@ def knn2_inputs(smoke, dev):
     step = tuple(torch.tensor([f], dtype=torch.int32, device=dev)
                  for f in (k - 1, k - 2))
     return packed, vt, step, loop
+
+
+def kernel_h(smoke, ck, frames, dev, rec: dict) -> None:
+    """Kernel H on octaves 0-3 of the SIFT path's first chunk of frames,
+    with and without the response, into ``rec``: CUDA-event ms a call (20
+    calls) and device ms."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.ops import sift
+    from slam_loop_closing_tpu_torch.ops.image import ship_frames
+
+    cfg = smoke.sfm_config("sift").sift
+    s = cfg.scales_per_octave
+    sig = sift._chain_sigmas(s, cfg.sigma0)
+    args = (s, sift._contrast_threshold(cfg), cfg.edge_threshold)
+    imgs = ship_frames(torch.from_numpy(frames[:cfg.batch_chunk]).to(dev),
+                       dev)
+    for o, x in enumerate(smoke.sift_octaves(imgs, smoke.SIFT_OCTAVES)):
+        for emit, mode in ((True, "resp"), (False, "gauss")):
+            def call():
+                return ck.gauss_stack_resp(x, sig, *args, emit_resp=emit)
+
+            rec[f"kernel_h_o{o}_{mode}_ms"] = smoke.cuda_ms(call, 20)
+            rec[f"kernel_h_o{o}_{mode}_device_ms"] = smoke.device_ms(call, 20)
 
 
 def kernel_f_step(smoke, ck, dev, rec: dict) -> None:
