@@ -14,9 +14,16 @@ each printed with its result and seconds on its own line:
    score and the blur), with CUDA-event times of both; kernel A also on one
    1080p frame (the live path), on a 540x960 crop's levels (ORB SfM and
    multi-video) and on frames narrower than its 64 x 16 tile, with the
-   share of pixels that pass its compass pre-test; kernel E also on single
-   sets of 4,000 and 1,531 matches (its target rows split over blocks),
-   with profiler device times beside the CUDA-event ones;
+   share of pixels that pass its compass pre-test; kernel J (one pyramid
+   level from the level before, both outputs) and kernel M (the keypoints'
+   orientation from their patches) on the front-end's levels and keypoints
+   of 8 1080p frames and of one (the live path), with A and B on the same
+   levels and keypoints, J beside the dense cuBLAS products it replaced
+   (their differing pixels counted) and M beside the moment product;
+   kernel D also with its target split forced to 1 and 16, beside a bf16
+   +-1 matmul and max on operands unpacked beforehand; kernel E also on
+   single sets of 4,000 and 1,531 matches (its target rows split over
+   blocks), with profiler device times beside the CUDA-event ones;
 4. slice process_video: ``LoopClosingSystem(device="cuda").process_video``
    on 96 frames of 1080p synthetic closed-loop video at ORB-2000 with one
    keypoint per 8-px cell — kernels A, B and C must launch, the orbit's
@@ -29,7 +36,8 @@ each printed with its result and seconds on its own line:
    triangulated points — then the stage split of a few frames;
 6. agreement: two 1080p frames through the ORB front-end on the CPU
    (plain versions) and on the card: bitwise pyramids, identical
-   keypoints, identical descriptors wherever the orientation bin agrees;
+   keypoints, at most 1% of them in another orientation bin (the count
+   printed), identical descriptors wherever the orientation bin agrees;
    then the 32-frame 144x192 fixture of the tests through process_video and
    through process_frame on the CPU and on the card: equal loop sets;
 7. kernel F: the Hamming top-2 kernel against its plain version at the
@@ -105,8 +113,9 @@ each printed with its result and seconds on its own line:
     materialises the [M, N] block);
 14. slice config 2: BASELINE config 2 at full width and depth — 500 frames
     of 1080p uint8 resident on the card, ORB-4000 grid 8, the front-end in
-    batches of 50; kernels A and B against their plain versions on one such
-    batch, at the front-end's own levels and per-level keypoints (bitwise);
+    batches of 50; kernels J, A, B and M against their plain versions on
+    one such batch, at the front-end's own levels and per-level keypoints
+    (bitwise);
     kernel I's pair-list form on the first chunk of 8,192 frame pairs of
     that store against its plain version (bitwise) and, after the count
     rule, against the frame-pair count kernel K5, both on the store as it
@@ -123,7 +132,8 @@ each printed with its result and seconds on its own line:
     [F, F] matrix must equal the pair route's everywhere;
 15. slice multi-video: ``process_videos_batched`` on 6 videos x 48 frames x
     540x960 uint8, ORB-1000, gap 16 (bench_multivideo.py's configuration):
-    kernels A and B against their plain versions on one video's batch,
+    kernels J, A, B and M against their plain versions on one video's
+    batch,
     kernel C against its plain version on the flat padded store of all six
     videos with every video's tile list (``matching.video_band_tiles``, what
     the path gives the kernel), bitwise; then the path: kernels A and B
@@ -150,18 +160,22 @@ main paths, its error against the plain version, its CUDA-event time and
 the plain version's, and its bound (the larger of the bytes it must move
 over 3.35 TB/s and the operations it does over the H100's rate for their
 type, all from this run's inputs). The rates: the b1 tensor-core rate for
-kernels C, K5 and I (2 x 256 one-bit operations a row pair; NVIDIA
+kernels C, K5, D, F and I (2 x 256 one-bit operations a row pair; NVIDIA
 publishes no b1 rate for this card, so the peak is the instruction rate of
 ``mma.sync.m16n8k256.b1`` that ``csrc/probes/probe_hamming_forms.py``
-measured); int8 tensor-core for kernels D and F, whose +-1 form is an int8
-product; for kernel A the min/max and float32 instructions it issues, each
-at its pipe's instruction rate (FMNMX at half the FFMA rate; the rates
-that ``csrc/probes/probe_rates.py`` measures agree), the arc extrema
+measured); for kernels J and M, bound by bytes, their float32 multiplies
+and adds on the FMA pipe; for kernel A the min/max and float32
+instructions it issues, each at its pipe's instruction rate (FMNMX at half
+the FFMA rate; the rates that ``csrc/probes/probe_rates.py`` measures
+agree), the arc extrema
 counted only for the pixels that pass the compass pre-test; for kernel G
 three tf32 products a float32 one (3xTF32) at the card's dense tf32 rate;
 float32 SIMT otherwise. ``library_ms`` is null (no single
 PyTorch call computes the kernel's function) except for kernel I, where it
-is the matmul-and-``amax`` form at 8192 x 8192. The last line is
+is the matmul-and-``amax`` form at 8192 x 8192, kernel D (the
+matmul-and-``max`` form at 2000 x 2000), and kernels J and M, where it is
+the cuBLAS form each replaced (a ``library`` key says which). The last
+line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX; run
 without the package beside it, it fails at the package's import.
 """
@@ -199,7 +213,12 @@ REPLACES = {"fast_score_nms_blur": f"{PKG}:736",     # _fast_kernel
             "hamming_nn": f"{PKG}:57",                # _hamming_nn_kernel
             "hamming_knn2": f"{PKG}:239",             # _hamming_knn2_kernel
             "motion_support": f"{PKG}:649",           # _support_kernel
-            "hamming_d1": f"{PKG}:140"}               # _hamming_d1_kernel
+            "hamming_d1": f"{PKG}:140",               # _hamming_d1_kernel
+            # no TPU kernel: the XLA work of the JAX package's
+            # resize_bilinear (its pyramid's matmuls) and
+            # orientation_from_patches (the moment sums)
+            "pyramid_level": "slam_loop_closing_tpu/ops/image.py:92",
+            "orient_moments": "slam_loop_closing_tpu/ops/orb.py:176"}
 SOURCES = {"fast_score_nms_blur": "fast_score_nms_blur.cu",
            "extract_patches": "extract_patches.cu",
            "band_count_tiles": "band_counts.cu",
@@ -209,18 +228,20 @@ SOURCES = {"fast_score_nms_blur": "fast_score_nms_blur.cu",
            "motion_support": "motion_support.cu",
            "l2_knn2": "l2_knn2.cu",
            "gauss_stack_resp": "gauss_stack_resp.cu",
-           "hamming_d1": "hamming_d1.cu"}
-VIDEO_KERNELS = ("fast_score_nms_blur", "extract_patches", "band_count_tiles")
-STREAM_KERNELS = ("fast_score_nms_blur", "extract_patches", "pair_counts",
-                  "hamming_nn", "motion_support")
+           "hamming_d1": "hamming_d1.cu",
+           "pyramid_level": "pyramid_level.cu",
+           "orient_moments": "orient_moments.cu"}
+ORB_KERNELS = ("pyramid_level", "fast_score_nms_blur", "extract_patches",
+               "orient_moments")   # the ORB front-end's
+VIDEO_KERNELS = ORB_KERNELS + ("band_count_tiles",)
+STREAM_KERNELS = ORB_KERNELS + ("pair_counts", "hamming_nn", "motion_support")
 SFM_FRAMES, SFM_H, SFM_W = 96, 540, 960   # bench_reconstruct.py's defaults
 SFM_FEATURES = 1000
 SFM_STORE, SFM_GAP = 48, 24     # kernel F's loop-search check: K/2 gap
 SUPPORT_EXTRA_SIZES = (4000, 1531)   # kernel E at batch 1 beside the live 2000
 SIFT_STORE_ROWS = 1536      # rows a frame of the SIFT keyframe store (the
                             # count bucket of SIFT-4000's 927-1,413 valid)
-SFM_KERNELS = ("fast_score_nms_blur", "extract_patches", "hamming_knn2",
-               "motion_support")
+SFM_KERNELS = ORB_KERNELS + ("hamming_knn2", "motion_support")
 # CPU vs card on the SfM fixture: float gates (the Sampson threshold, the
 # parallax gate) flip for a few points near their thresholds, so inlier and
 # map counts agree within these bounds, not exactly
@@ -239,12 +260,12 @@ SIFT_FIXTURE_HYPOTHESES = 256
 D1_BENCH_ROWS = 8192                # bench_hamming.py's shape
 C2_FRAMES, C2_H, C2_W = 500, 1080, 1920   # BASELINE config 2
 C2_FEATURES, C2_BATCH, C2_PAIRS_PER_CALL = 4000, 50, 8192
-C2_KERNELS = ("fast_score_nms_blur", "extract_patches", "hamming_d1")
+C2_KERNELS = ORB_KERNELS + ("hamming_d1",)
 HOLE_FRAMES = (5, 70)       # frames marked wholly invalid in the store checks
 C2_HOLE_DEPTH = 192         # frames of the two routes' comparison with holes
 MV_VIDEOS, MV_FRAMES, MV_H, MV_W = 6, 48, 540, 960   # bench_multivideo.py
 MV_FEATURES = 1000
-MV_KERNELS = ("fast_score_nms_blur", "extract_patches", "band_count_tiles")
+MV_KERNELS = ORB_KERNELS + ("band_count_tiles",)
 CLI_FRAMES, CLI_H, CLI_W = 32, 144, 192   # the tests' orbit fixture
 # the multi-loop fixture of tests/test_torch_loop_closing.py
 ML_FRAMES, ML_H, ML_W, ML_POINTS, ML_SEED = 96, 240, 320, 800, 3
@@ -357,7 +378,9 @@ KERNEL_NAMES = {"fast_score_nms_blur_kernel": "fast_score_nms_blur",
                 "l2_knn2_kernel": "l2_knn2",
                 "merge_splits_kernel": "l2_knn2",
                 "blur_window_kernel": "gauss_stack_resp",
-                "dog_gates_kernel": "gauss_stack_resp"}
+                "dog_gates_kernel": "gauss_stack_resp",
+                "pyramid_level_kernel": "pyramid_level",
+                "orient_moments_kernel": "orient_moments"}
 def kernel_device_ms(prof, path: str, device_ms: dict) -> None:
     """Each kernel's summed device time (ms) in a profile of one run of a
     main path, by wrapper name: kept in ``device_ms[path]`` and printed."""
@@ -478,6 +501,17 @@ def slice_config():
         orb=OrbConfig(num_features=NUM_FEATURES, grid_cell=8))
 
 
+@contextlib.contextmanager
+def forced_splits(ck, splits: int):
+    """Every kernel's target split set to ``splits`` inside the block."""
+    saved = ck._target_splits
+    ck._target_splits = lambda *a: splits
+    try:
+        yield
+    finally:
+        ck._target_splits = saved
+
+
 def check_bitwise(name: str, got, ref) -> None:
     import torch
 
@@ -548,6 +582,17 @@ def check_kernels(frames_dev, dev) -> dict:
           f"{passing / px:.2%} of the pixels pass the compass pre-test; "
           f"bitwise also at {[tuple(x.shape) for x in extra]}; one frame "
           f"at the 4 levels {one_ms:.4f} ms")
+
+    # J and M at the batched path's shapes (8 frames) and the live path's
+    # (one frame), with A and B on the same levels and keypoints
+    from slam_loop_closing_tpu_torch.config import OrbConfig
+    cfg = OrbConfig(num_features=NUM_FEATURES, grid_cell=8)
+    imgs8 = image_ops.ship_frames(frames_dev[:8], dev)
+    records.update(check_front_end_kernels(
+        f"8 x {H}x{W}, ORB-{NUM_FEATURES} grid 8", imgs8, cfg, reps=10))
+    check_front_end_kernels(f"one {H}x{W} frame (the live path)", imgs8[:1],
+                            cfg)
+    del imgs8
 
     # B: 2000 keypoints per frame on all 96 blurred 1080p frames, some at
     # the borders (clamped windows)
@@ -671,15 +716,38 @@ def check_live_kernels(dev) -> dict:
         ref = ck.hamming_nn_plain(pq, vq, pt, valid_t)
         check_bitwise("hamming_nn", got, ref)
         err = max(err, int((got[0] - ref[0]).abs().max()))
+    # the target split forced to 1 and to 16 (each slab's merge)
+    for splits in (1, 16):
+        with forced_splits(ck, splits):
+            check_bitwise(f"hamming_nn, {splits} splits",
+                          ck.hamming_nn(pq, vq, pt, vt),
+                          ck.hamming_nn_plain(pq, vq, pt, vt))
     ms = cuda_ms(lambda: ck.hamming_nn(pq, vq, pt, vt), 20)
+    dms = device_ms(lambda: ck.hamming_nn(pq, vq, pt, vt), 20)
     plain_ms = cuda_ms(lambda: ck.hamming_nn_plain(pq, vq, pt, vt), 5)
+    # the library form: one +-1 bf16 matmul on the tensor cores and a row
+    # max with its index, on operands unpacked beforehand (validity not
+    # applied)
+    sq_b = desc_ops.bits_to_signed(desc_ops.packed_to_bits(pq)).to(
+        torch.bfloat16)
+    st_b = desc_ops.bits_to_signed(desc_ops.packed_to_bits(pt)).to(
+        torch.bfloat16)
+    library_ms = cuda_ms(lambda: torch.max(sq_b @ st_b.T, dim=1), 20)
     records["hamming_nn"] = dict(
-        max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+        max_abs_err=float(err), ms=ms, device_ms=dms, plain_ms=plain_ms,
         **bound(2 * n * 33 + 8 * n,
-                512.0 * int(vq.sum()) * int(vt.sum()), "int8"))
+                512.0 * int(vq.sum()) * int(vt.sum()), "b1"))
+    records["hamming_nn"].update(
+        library_ms=library_ms,
+        library="bf16 +-1 matmul + max with index, operands unpacked "
+                "beforehand")
     phase("kernel D hamming_nn", t0,
-          f"{n} x {n} descriptors (+ all-invalid targets): bitwise; kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+          f"{n} x {n} descriptors (+ all-invalid targets, splits 1 and 16 "
+          f"forced): bitwise; kernel {ms:.4f} ms (device {dms:.4f} ms), "
+          f"plain {plain_ms:.3f} ms, bf16 matmul + max {library_ms:.4f} ms, "
+          f"bound {records['hamming_nn']['bound_ms']:.5f} ms "
+          f"({records['hamming_nn']['bound_by']})")
+    del sq_b, st_b
 
     # E: 2000 matches in normalized coordinates at the system's radius/tau
     t0 = time.perf_counter()
@@ -1823,14 +1891,23 @@ def check_sift_agreement(dev) -> None:
           f"{cpu['errs'].tolist()} card {card['errs'].tolist()}")
 
 
-def check_front_end_kernels(name: str, imgs, cfg) -> None:
-    """Kernels A and B against their plain versions at the shapes
+def check_front_end_kernels(name: str, imgs, cfg, reps: int = 0) -> dict:
+    """Kernels J, A, B and M against their plain versions at the shapes
     ``orb.detect_and_describe_batch`` gives them for one batch ``imgs``
-    [B, H, W] float32 under the ORB config ``cfg``: every pyramid level of
-    the whole batch through kernel A, then that level's own keypoints (its
-    share of the feature budget) on its blurred frames through kernel B.
-    Bitwise. The plain FAST runs over the batch 10 frames at a time, which
-    bounds its memory and changes nothing per frame."""
+    [B, H, W] float32 under the ORB config ``cfg``: each pyramid level from
+    the level before through kernel J (the bfloat16 and the float32 level),
+    every level of the whole batch through kernel A, then that level's own
+    keypoints (its share of the feature budget) on its blurred frames
+    through kernel B, and the orientation of all the batch's keypoints from
+    their patches through kernel M. Bitwise. The plain FAST runs over the
+    batch 10 frames at a time, which bounds its memory and changes nothing
+    per frame. With ``reps``, returns J's and M's records: CUDA-event times
+    of the kernels, of their plain versions and of the cuBLAS forms they
+    replaced (J: the dense float32 products of ``image.resize_bilinear``
+    at bfloat16, the first level's rounding of the frames included; M: the
+    [K, 1024] @ [1024, 2] moment product), and their bounds."""
+    import torch
+
     from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
     from slam_loop_closing_tpu_torch.ops import fast as fast_ops
     from slam_loop_closing_tpu_torch.ops import image as image_ops
@@ -1838,9 +1915,42 @@ def check_front_end_kernels(name: str, imgs, cfg) -> None:
 
     t0 = time.perf_counter()
     thr = cfg.fast_threshold / 255.0
-    levels = image_ops.pyramid(imgs, cfg.num_levels, cfg.scale_factor)
+    h, w = imgs.shape[-2:]
+    levels, prev = [imgs], imgs
+    j = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0, ops=0.0)
+    for lvl in range(1, cfg.num_levels):
+        s = cfg.scale_factor ** lvl
+        nh, nw = max(8, int(round(h / s))), max(8, int(round(w / s)))
+        got = ck.pyramid_level(prev, nh, nw)
+        check_bitwise(f"kernel J ({name}, level {lvl})", got,
+                      ck.pyramid_level_plain(prev, nh, nw))
+        if reps:
+            x = prev
+
+            def dense():
+                y = image_ops.resize_bilinear(x.to(torch.bfloat16), nh, nw)
+                return y, y.to(torch.float32)
+
+            j["dense_px"] = j.get("dense_px", 0) + int(
+                (dense()[0] != got[0]).sum())
+            j["ms"] += cuda_ms(lambda: ck.pyramid_level(x, nh, nw), reps)
+            j["plain_ms"] += cuda_ms(
+                lambda: ck.pyramid_level_plain(x, nh, nw), 3)
+            j["library_ms"] += cuda_ms(dense, reps)
+            # the input read once, both levels written once; per output of
+            # each pass T multiplies and T - 1 adds on the FMA pipe
+            taps = [image_ops.resize_taps(*a)[1].shape[1]
+                    for a in ((x.shape[1], nh), (x.shape[2], nw))]
+            mid = nh * x.shape[2] if x.shape[1] <= x.shape[2] else \
+                x.shape[1] * nw
+            j["nbytes"] += x.numel() * x.element_size() + got[0].numel() * 6
+            j["ops"] += x.shape[0] * sum(
+                (2 * t - 1) * n for t, n in zip(taps, (mid, nh * nw)))
+        levels.append(got[1])
+        prev = got[0]
     budgets = orb._level_budgets(cfg.num_features, cfg.num_levels,
                                  cfg.scale_factor)
+    patches, valid = [], []
     for lv, budget in zip(levels, budgets):
         shape = f"{name}, level {tuple(lv.shape)}"
         score, blur = ck.fast_score_nms_blur(lv, thr)
@@ -1848,16 +1958,61 @@ def check_front_end_kernels(name: str, imgs, cfg) -> None:
             check_bitwise(f"kernel A ({shape})",
                           [score[s:s + 10], blur[s:s + 10]],
                           ck.fast_score_nms_blur_plain(lv[s:s + 10], thr))
-        xy, _, _, blurred = fast_ops.detect_with_blur(
+        xy, _, val, blurred = fast_ops.detect_with_blur(
             lv, threshold=thr, num_features=budget, nms_radius=cfg.nms_radius,
             border=cfg.border, grid_cell=cfg.grid_cell)
-        check_bitwise(f"kernel B ({shape}, {budget} keypoints)",
-                      [ck.extract_patches(blurred, xy)],
+        got = ck.extract_patches(blurred, xy)
+        check_bitwise(f"kernel B ({shape}, {budget} keypoints)", [got],
                       [ck.extract_patches_plain(blurred, xy)])
-    phase(f"kernels A and B, {name}", t0,
+        patches.append(got)
+        valid.append(val)
+    flat = torch.cat(patches, 1).reshape(-1, orb.PATCH, orb.PATCH)
+    val = torch.cat(valid, 1).reshape(-1)
+    del patches, valid
+    mw = orb._moment_weights_on(flat.device)
+    ang = ck.orient_moments(flat, val, mw)
+    check_bitwise(f"kernel M ({name}, {flat.shape[0]} keypoints)", [ang],
+                  [ck.orient_moments_plain(flat, val, mw)])
+    phase(f"kernels J, A, B and M, {name}", t0,
           f"one front-end batch of {imgs.shape[0]} frames, levels "
           f"{[tuple(lv.shape[1:]) for lv in levels]} with {budgets} keypoints "
-          f"a frame: score, blur and patches bitwise")
+          f"a frame: levels, score, blur, patches and "
+          f"{flat.shape[0]} angles bitwise")
+    if not reps:
+        return {}
+    k = flat.shape[0]
+    records = {"pyramid_level": dict(
+        max_abs_err=0.0, ms=j["ms"], plain_ms=j["plain_ms"],
+        **bound_pipes(j["nbytes"], {"ffma": j["ops"]}))}
+    records["pyramid_level"].update(
+        library_ms=j["library_ms"],
+        library="the dense float32 products it replaced "
+                "(image.resize_bilinear at bfloat16, two cuBLAS GEMMs and "
+                "two roundings a level)")
+    records["orient_moments"] = dict(
+        max_abs_err=0.0, ms=cuda_ms(lambda: ck.orient_moments(flat, val, mw),
+                                    reps),
+        plain_ms=cuda_ms(lambda: ck.orient_moments_plain(flat, val, mw), 3),
+        # the patches, the validity and the angles; 2 x 1,024 multiplies
+        # and 2 x 1,023 adds a keypoint on the FMA pipe
+        **bound_pipes(k * (orb.PATCH * orb.PATCH * 4 + 1 + 4),
+                      {"ffma": k * 4094.0}))
+    records["orient_moments"].update(
+        library_ms=cuda_ms(lambda: flat.reshape(k, -1) @ mw, reps),
+        library="the [K, 1024] @ [1024, 2] float32 cuBLAS product it "
+                "replaced (without the atan2)")
+    print(f"  kernel J, 3 levels: {j['ms']:.4f} ms, plain {j['plain_ms']:.3f} "
+          f"ms, dense products {j['library_ms']:.3f} ms, bound "
+          f"{records['pyramid_level']['bound_ms']:.4f} ms "
+          f"({records['pyramid_level']['bound_by']}); kernel M, {k} "
+          f"keypoints: {records['orient_moments']['ms']:.4f} ms, plain "
+          f"{records['orient_moments']['plain_ms']:.3f} ms, cuBLAS product "
+          f"{records['orient_moments']['library_ms']:.4f} ms, bound "
+          f"{records['orient_moments']['bound_ms']:.4f} ms "
+          f"({records['orient_moments']['bound_by']}); the dense products "
+          f"differ from J's fixed order at {j['dense_px']} pixels of the "
+          f"batch's levels", flush=True)
+    return records
 
 
 def _random_words(gen, *shape):

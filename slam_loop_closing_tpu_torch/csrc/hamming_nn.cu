@@ -2,9 +2,8 @@
 // eight 32-bit words.
 //
 // Kernel D (hamming_nn_kernel). Hamming nearest neighbour: for every query
-// row i of M 256-bit
-// descriptors, the valid target row j of N that minimises hamming(q_i, t_j),
-// the lowest such j on ties:
+// row i of M 256-bit descriptors, the valid target row j of N that
+// minimises hamming(q_i, t_j), the lowest such j on ties:
 //   d1[i]  = min_j hamming(q_i, t_j)        over valid targets j
 //   idx[i] = the lowest j that reaches d1[i]
 // An invalid query row, or one with no valid target at all, gets
@@ -16,19 +15,21 @@
 // unit and left invalid query rows unmasked; here query validity is applied
 // in the kernel.
 //
-// Design: one warp per query row, 8 rows per block of 256 threads, so the
-// M = 2000 rows of a frame spread over 250 blocks (all 132 SMs) instead of
-// one. The block stages 512 target rows (16 KB of packed words) at a time
-// in shared memory for its 8 warps; lane l scans targets l, l+32, ... in
-// increasing order with a strict '<', so its minimum carries its lowest
-// index, and a shuffle reduction over (distance, index) pairs keeps the
-// lowest index among equal distances. No atomics: the result is
-// deterministic.
+// Design: kernel F's block as it is (hamming_knn2.cuh's top2_keys, the
+// tensor cores' b1 and-popc product with each distance folded into the key
+// (distance << 20) | row), of which D keeps the smallest key: d1 and the
+// lowest row at it, by construction; the second key is dropped. One pair
+// and 2,000 query rows are 8 slabs of 256 rows, so the target rows are
+// split over blocks (ops/cuda_kernels._target_splits, as for F), each split
+// block writes its smallest key a row and takes a ticket of its slab, and
+// the block that takes the last ticket merges the slab's keys with one
+// integer min a split and writes (d1, idx): one launch. The min of distinct
+// keys is order-free, so the result does not depend on which block comes
+// last: bitwise equal to the plain version.
 //
-// Bound on the H100: at a frame pair of 2000 x 2000 rows the integer work
-// (8 XOR + 8 POPC + adds per row pair, 4 M pairs) is small; the launch and
-// the single pass over the staged targets dominate. Later work: the b1
-// tensor-core form of kernel F below (hamming_knn2.cuh).
+// Bound on the H100: the b1 mma, 512 operations a row pair at 10.1 POP/s:
+// 0.0002 ms at 2000 x 2000, below a launch's latency; the launch and the
+// merge set the pace.
 //
 // Kernel F (hamming_knn2_kernel). Hamming top-2 of a list of frame pairs:
 // for pair p and query row i of frame qidx[p], over the valid rows j of
@@ -76,67 +77,15 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;  // query rows per block
-constexpr int kChunk = 512;            // target rows staged per pass
-constexpr int kBig = 1 << 30;          // distance of a masked pair
 
-__device__ __forceinline__ int ham(const uint4& qa, const uint4& qb,
-                                   const uint4& ta, const uint4& tb) {
-  return __popc(qa.x ^ ta.x) + __popc(qa.y ^ ta.y) + __popc(qa.z ^ ta.z) +
-         __popc(qa.w ^ ta.w) + __popc(qb.x ^ tb.x) + __popc(qb.y ^ tb.y) +
-         __popc(qb.z ^ tb.z) + __popc(qb.w ^ tb.w);
-}
-
-// q: [m, 2] uint4 (8 words per row); t: [n, 2] uint4; vq: [m], vt: [n] uint8
-__global__ void __launch_bounds__(kThreads)
-hamming_nn_kernel(const uint4* __restrict__ q, const uint4* __restrict__ t,
-                  const uint8_t* __restrict__ vq,
-                  const uint8_t* __restrict__ vt, int* __restrict__ d1,
-                  int* __restrict__ idx, int m, int n) {
-  __shared__ uint4 st[kChunk][2];
-  __shared__ uint8_t sv[kChunk];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kWarps + warp;
-  // every thread stays for the block's barriers; inactive rows only skip
-  // the scan
-  const bool active = row < m && vq[row] != 0;
-  uint4 qa = make_uint4(0, 0, 0, 0), qb = make_uint4(0, 0, 0, 0);
-  if (active) {
-    qa = q[2 * row];
-    qb = q[2 * row + 1];
-  }
-  int best = kBig, best_j = 0;
-  for (int t0 = 0; t0 < n; t0 += kChunk) {
-    __syncthreads();  // the previous chunk is no longer being read
-    for (int j = threadIdx.x; j < kChunk && t0 + j < n; j += kThreads) {
-      st[j][0] = t[2 * (t0 + j)];
-      st[j][1] = t[2 * (t0 + j) + 1];
-      sv[j] = vt[t0 + j];
-    }
-    __syncthreads();
-    if (!active) continue;
-    const int cnt = min(kChunk, n - t0);
-    for (int j = lane; j < cnt; j += 32) {
-      if (!sv[j]) continue;
-      const int d = ham(qa, qb, st[j][0], st[j][1]);
-      if (d < best) {
-        best = d;
-        best_j = t0 + j;
-      }
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    const int ob = __shfl_xor_sync(0xffffffffu, best, o);
-    const int oj = __shfl_xor_sync(0xffffffffu, best_j, o);
-    if (ob < best || (ob == best && oj < best_j)) {
-      best = ob;
-      best_j = oj;
-    }
-  }
-  if (lane == 0 && row < m) {
-    d1[row] = best;
-    idx[row] = best_j;
-  }
+// (d1, idx) of a query row from its smallest key (popc(q) added): (2^30, 0)
+// for an invalid query row or one with no valid target
+__device__ __forceinline__ void store1(int* __restrict__ d1,
+                                       int* __restrict__ idx, int row,
+                                       bool valid, int k1) {
+  const bool hit = valid && k1 < hamming_knn2::kNoKey;
+  d1[row] = hit ? k1 >> hamming_knn2::kIdxBits : hamming_knn2::kBig;
+  idx[row] = hit ? k1 & hamming_knn2::kIdxMask : 0;
 }
 
 constexpr int kKnnTiles = 2;  // 16-row query tiles a warp
@@ -202,6 +151,53 @@ hamming_knn2_kernel(const uint32_t* __restrict__ q,
   hamming_knn2::store(d1, idx, d2, o + row, vq[q_base + row] != 0, k.x, k.y);
 }
 
+// q: [m, 8] words; t: [n, 8] words; vq: [m], vt: [n] uint8; d1, idx: [m]
+// int32. blockIdx.x = slab * splits + split; split s scans target rows
+// [s * split_len, min(n, (s + 1) * split_len)). With splits > 1 each block
+// writes its smallest key a row to partial ([splits, m] int32) and takes a
+// ticket from tickets[slab] (zero on entry); the block that takes the last
+// one merges the slab's keys over the splits, writes (d1, idx) and returns
+// the ticket to zero for the next launch.
+__global__ void __launch_bounds__(kThreads)
+hamming_nn_kernel(const uint32_t* __restrict__ q,
+                  const uint32_t* __restrict__ t,
+                  const uint8_t* __restrict__ vq,
+                  const uint8_t* __restrict__ vt, int* __restrict__ d1,
+                  int* __restrict__ idx, int* __restrict__ partial,
+                  unsigned* __restrict__ tickets, int m, int n, int splits,
+                  int split_len) {
+  __shared__ __align__(16) unsigned char smem[hamming_knn2::kSmemBytes];
+  __shared__ bool last;
+  const int split = blockIdx.x % splits;
+  const int slab = blockIdx.x / splits;
+  const int t_begin = split * split_len;
+  hamming_knn2::top2_keys<kKnnTiles>(
+      q, m, slab * kKnnSlab, t, vt, t_begin, min(n, t_begin + split_len),
+      smem, [&](int row, int k1, int) {
+        if (splits == 1)
+          store1(d1, idx, row, vq[row] != 0, k1);
+        else
+          partial[static_cast<size_t>(split) * m + row] = k1;
+      });
+  if (splits == 1) return;
+  // every block's keys are visible device-wide before its ticket is taken
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned* ticket = tickets + slab;
+    last = atomicAdd(ticket, 1u) == static_cast<unsigned>(splits - 1);
+    if (last) *ticket = 0;
+  }
+  __syncthreads();
+  const int row = slab * kKnnSlab + threadIdx.x;
+  if (!last || row >= m) return;
+  // other SMs wrote these keys: read them past the (incoherent) L1
+  int k = __ldcg(partial + row);
+  for (int s = 1; s < splits; ++s)
+    k = min(k, __ldcg(partial + static_cast<size_t>(s) * m + row));
+  store1(d1, idx, row, vq[row] != 0, k);
+}
+
 }  // namespace
 
 // (d1, idx, d2) [p, n_q] of the frame pairs (qidx[p], tidx[p]). With
@@ -236,16 +232,29 @@ extern "C" int slam_hamming_knn2(const void* q, const void* t, const void* vq,
   return static_cast<int>(cudaGetLastError());
 }
 
+// (d1, idx) [m] of query rows q [m, 8] against target rows t [n, 8]. With
+// splits == 1 `partial` and `tickets` are not read; with splits > 1
+// `partial` is a [splits, m] int32 scratch buffer and `tickets` holds
+// ceil(m / 256) zeros, which the launch leaves at zero. n must be below
+// 2^20 (the index bits of a key).
 extern "C" int slam_hamming_nn(const void* q, const void* t, const void* vq,
-                               const void* vt, void* d1, void* idx, int m,
-                               int n, void* stream) {
+                               const void* vt, void* d1, void* idx,
+                               void* partial, void* tickets, int m, int n,
+                               int splits, void* stream) {
   if (m > 0) {
-    const unsigned blocks = static_cast<unsigned>((m + kWarps - 1) / kWarps);
-    hamming_nn_kernel<<<blocks, kThreads, 0,
+    if (n > hamming_knn2::kIdxMask)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int slabs = (m + kKnnSlab - 1) / kKnnSlab;
+    if (splits < 1 || n < 1) splits = 1;
+    const int split_len = (n + splits - 1) / splits;
+    if (n > 0) splits = (n + split_len - 1) / split_len;
+    hamming_nn_kernel<<<static_cast<unsigned>(slabs * splits), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint4*>(q), static_cast<const uint4*>(t),
+        static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(t),
         static_cast<const uint8_t*>(vq), static_cast<const uint8_t*>(vt),
-        static_cast<int*>(d1), static_cast<int*>(idx), m, n);
+        static_cast<int*>(d1), static_cast<int*>(idx),
+        static_cast<int*>(partial), static_cast<unsigned*>(tickets), m, n,
+        splits, split_len);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,13 +27,19 @@ motion_support         csrc/motion_support.cu        ``_support_kernel``
 l2_knn2                csrc/l2_knn2.cu               ``_l2_knn2_kernel``
 gauss_stack_resp       csrc/gauss_stack_resp.cu      ``_gauss_stack_resp_kernel``
                                                      and ``_gauss_stack_kernel``
+pyramid_level          csrc/pyramid_level.cu         none: XLA's resize matmuls
+orient_moments         csrc/orient_moments.cu        none: XLA's moment sums
 =====================  ============================  ===========================
+
+``pyramid_level`` (J) and ``orient_moments`` (M) replace work that the JAX
+package leaves to XLA and the port first ran as cuBLAS products: they sum in
+a fixed order, so the front-end's bits do not depend on its batch size.
 
 ``band_count_tiles``, ``pair_counts`` and ``hamming_d1`` share one inner loop,
 ``csrc/hamming_mma.cuh``: the tensor cores' one-bit and-popc product on the
-packed words. ``hamming_knn2`` runs the same product through
-``csrc/hamming_knn2.cuh``, which folds each distance and its target row into
-one key for an exact top-2 with index.
+packed words. ``hamming_knn2`` and ``hamming_nn`` run the same product
+through ``csrc/hamming_knn2.cuh``, which folds each distance and its target
+row into one key for an exact top-2 (top-1 for ``hamming_nn``) with index.
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ from slam_loop_closing_tpu_torch.utils import cuda_build
 LAUNCHES = {"fast_score_nms_blur": 0, "extract_patches": 0,
             "band_count_tiles": 0, "pair_counts": 0, "hamming_nn": 0,
             "hamming_knn2": 0, "motion_support": 0, "l2_knn2": 0,
-            "gauss_stack_resp": 0, "hamming_d1": 0}
+            "gauss_stack_resp": 0, "hamming_d1": 0, "pyramid_level": 0,
+            "orient_moments": 0}
 
 
 def reset_launch_counts() -> None:
@@ -330,6 +337,27 @@ def pair_counts(packed: torch.Tensor, valid: torch.Tensor, qidx: torch.Tensor,
 # D: Hamming nearest neighbour
 # --------------------------------------------------------------------------
 
+_KNN2_PAIRS_PER_PASS = 64   # bounds the plain version's [P, N, M] block
+_KNN2_SLAB = 256            # query rows a block of kernels D and F (8 x 32)
+_KNN2_BLOCKS_PER_SM = 2     # blocks a target split of D and F aims for
+_KNN2_MIN_SPLIT_ROWS = 64   # fewest target rows a split of D and F scans
+_KNN2_MAX_ROWS = 1 << 20    # a key holds the target row in 20 bits
+_KNN2_TICKETS: dict = {}    # (device, stream) -> D's and F's zeroed tickets
+
+
+def _knn2_tickets(dev: torch.device, count: int) -> torch.Tensor:
+    """At least ``count`` int32 zeros on ``dev`` for the tickets of the
+    split merges of kernels D and F, one buffer for each stream: a launch
+    returns every ticket it takes to zero, so the buffer serves the
+    stream's next launch as it is (two streams sharing one would race)."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _KNN2_TICKETS.get(key)
+    if buf is None or buf.numel() < count:
+        buf = torch.zeros(max(count, 64), dtype=torch.int32, device=dev)
+        _KNN2_TICKETS[key] = buf
+    return buf
+
+
 def hamming_nn_plain(packed_q: torch.Tensor, valid_q: torch.Tensor,
                      packed_t: torch.Tensor, valid_t: torch.Tensor):
     """Nearest valid target per query row over Hamming distance: ([M] d1,
@@ -347,8 +375,11 @@ def hamming_nn_plain(packed_q: torch.Tensor, valid_q: torch.Tensor,
 def hamming_nn(packed_q: torch.Tensor, valid_q: torch.Tensor,
                packed_t: torch.Tensor, valid_t: torch.Tensor):
     """:func:`hamming_nn_plain` of ``[M, 8]`` / ``[N, 8]`` int32 packed
-    words; on CUDA tensors one kernel (a warp per query row, XOR +
-    ``__popc``). Bitwise equal to the plain version.
+    words; on CUDA tensors one launch of kernel D (kernel F's tensor-core
+    block of ``csrc/hamming_knn2.cuh``, keeping each row's smallest key:
+    256 query rows a block, the target rows split over blocks and each
+    slab's keys merged by its last block). Bitwise equal to the plain
+    version.
 
     Unlike the TPU kernel, which leaves invalid query rows unmasked (their
     d1 is the distance to the nearest target, for the caller to mask), an
@@ -372,38 +403,26 @@ def hamming_nn(packed_q: torch.Tensor, valid_q: torch.Tensor,
     valid_q = valid_q.contiguous().view(torch.uint8)
     valid_t = valid_t.contiguous().view(torch.uint8)
     m, n = packed_q.shape[0], packed_t.shape[0]
-    d1 = torch.empty(m, dtype=torch.int32, device=packed_q.device)
-    idx = torch.empty(m, dtype=torch.int32, device=packed_q.device)
-    _launch("hamming_nn", packed_q.device, packed_q.data_ptr(),
-            packed_t.data_ptr(), valid_q.data_ptr(), valid_t.data_ptr(),
-            d1.data_ptr(), idx.data_ptr(), m, n)
-    return d1, idx
+    _require(n < _KNN2_MAX_ROWS, "at most 2^20 - 1 target rows")
+    dev = packed_q.device
+    slabs = -(-m // _KNN2_SLAB)
+    splits = _target_splits(slabs, _KNN2_BLOCKS_PER_SM, n,
+                            _KNN2_MIN_SPLIT_ROWS, _sm_count(dev.index))
+    # d1, idx and, with splits, the [splits, M] keys of the merge: one
+    # allocation, as the live path calls this twice a frame
+    buf = torch.empty((2 + (splits if splits > 1 else 0), m),
+                      dtype=torch.int32, device=dev)
+    tickets = _knn2_tickets(dev, slabs).data_ptr() if splits > 1 else None
+    _launch("hamming_nn", dev, packed_q.data_ptr(), packed_t.data_ptr(),
+            valid_q.data_ptr(), valid_t.data_ptr(), buf[0].data_ptr(),
+            buf[1].data_ptr(), buf[2].data_ptr() if splits > 1 else None,
+            tickets, m, n, splits)
+    return buf[0], buf[1]
 
 
 # --------------------------------------------------------------------------
 # F: Hamming top-2 of frame pairs
 # --------------------------------------------------------------------------
-
-_KNN2_PAIRS_PER_PASS = 64   # bounds the plain version's [P, N, M] block
-_KNN2_SLAB = 256            # query rows a block of kernel F (8 warps x 32)
-_KNN2_BLOCKS_PER_SM = 2     # blocks a target split of kernel F aims for
-_KNN2_MIN_SPLIT_ROWS = 64   # fewest target rows a split of kernel F scans
-_KNN2_MAX_ROWS = 1 << 20    # a key holds the target row in 20 bits
-_KNN2_TICKETS: dict = {}    # (device, stream) -> kernel F's zeroed tickets
-
-
-def _knn2_tickets(dev: torch.device, count: int) -> torch.Tensor:
-    """At least ``count`` int32 zeros on ``dev`` for the tickets of kernel
-    F's split merge, one buffer for each stream: a launch returns every
-    ticket it takes to zero, so the buffer serves the stream's next launch
-    as it is (two streams sharing one would race)."""
-    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    buf = _KNN2_TICKETS.get(key)
-    if buf is None or buf.numel() < count:
-        buf = torch.zeros(max(count, 64), dtype=torch.int32, device=dev)
-        _KNN2_TICKETS[key] = buf
-    return buf
-
 
 def hamming_knn2_plain(packed_q: torch.Tensor, valid_q: torch.Tensor,
                        packed_t: torch.Tensor, valid_t: torch.Tensor,
@@ -860,3 +879,133 @@ def gauss_stack_resp(imgs: torch.Tensor, sigmas, num_scales: int,
             num_scales if emit_resp else 0, thr, edge_r,
             float(np.float32((edge_r + 1.0) ** 2)), border)
     return gauss, resp
+
+
+# --------------------------------------------------------------------------
+# J: one ORB pyramid level in a fixed tap order
+# --------------------------------------------------------------------------
+
+_PYR_TILE_H, _PYR_TILE_W = 16, 64   # output tile of a block of kernel J
+_PYR_SMEM = 48 * 1024               # kernel J's shared memory, at most
+
+
+def pyramid_level_plain(x: torch.Tensor, out_h: int, out_w: int):
+    """(bfloat16, float32) ``[B, out_h, out_w]`` level resized from ``[B, H,
+    W]`` frames ``x`` (float32, rounded to bfloat16 first, or bfloat16) by
+    :func:`..image.resize_banded`."""
+    level = image_ops.resize_banded(x, out_h, out_w)
+    return level, level.to(torch.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _pyramid_span(in_size: int, out_size: int, tile: int) -> int:
+    """The most input indices that the outputs of one tile of ``tile``
+    consecutive outputs read along an axis resized from ``in_size`` to
+    ``out_size`` (kernel J's first pass holds them in shared memory)."""
+    start, band = image_ops.resize_taps(in_size, out_size)
+    first = np.arange(0, out_size, tile)
+    last = np.minimum(first + tile, out_size) - 1
+    return int((start[last] + band.shape[1] - start[first]).max())
+
+
+def pyramid_level(x: torch.Tensor, out_h: int, out_w: int):
+    """:func:`pyramid_level_plain`; on a CUDA tensor one launch of kernel J
+    (a 16 x 64 output tile a block, the first pass's bfloat16 intermediate
+    in shared memory, every tap in ascending input index with no FMA),
+    which writes both the bfloat16 and the float32 level. Bitwise equal to
+    the plain version; a float32 input is rounded to bfloat16 on load."""
+    _require(x.dim() == 3 and x.dtype in (torch.float32, torch.bfloat16),
+             "x must be [B, H, W] float32 or bfloat16")
+    if not _on_cuda(x):
+        return pyramid_level_plain(x, out_h, out_w)
+    b, h, w = x.shape
+    _require(b <= 65535, "at most 65535 frames per launch")
+    x = x.contiguous()
+    rs, rw = image_ops.device_taps(h, out_h, x.device)
+    cs, cw = image_ops.device_taps(w, out_w, x.device)
+    rows_first = not h > w
+    if rows_first:
+        span = _pyramid_span(w, out_w, _PYR_TILE_W)
+        smem = 4 * span * _PYR_TILE_H
+    else:
+        span = _pyramid_span(h, out_h, _PYR_TILE_H)
+        smem = 4 * span * _PYR_TILE_W
+    _require(smem <= _PYR_SMEM, "a tile of this resize reads too many inputs")
+    out_b = torch.empty((b, out_h, out_w), dtype=torch.bfloat16,
+                        device=x.device)
+    out_f = torch.empty((b, out_h, out_w), dtype=torch.float32,
+                        device=x.device)
+    _launch("pyramid_level", x.device, x.data_ptr(),
+            int(x.dtype == torch.bfloat16), out_b.data_ptr(),
+            out_f.data_ptr(), rs.data_ptr(), rw.data_ptr(), rw.shape[1],
+            cs.data_ptr(), cw.data_ptr(), cw.shape[1], b, h, w, out_h, out_w,
+            int(rows_first), span)
+    return out_b, out_f
+
+
+# --------------------------------------------------------------------------
+# M: ORB orientation moments in a fixed order
+# --------------------------------------------------------------------------
+
+_MOMENT_ROWS_PER_PASS = 16384   # bounds the plain version's [K, 1024, 2]
+
+
+def moment_sums_plain(patches: torch.Tensor,
+                      weights: torch.Tensor) -> torch.Tensor:
+    """[K, 2] float32 moments ``(m10, m01)`` of ``[K, P, P]`` float32 patches
+    against ``weights`` [P*P, 2] in kernel M's fixed order: every product
+    rounded to float32, then a pairwise tree over the P*P columns (``p =
+    p[:, :h] + p[:, h:]`` for h = P*P/2, ..., 1), a bounded number of rows
+    at a time."""
+    k = patches.shape[0]
+    flat = patches.reshape(k, -1)
+    cols = flat.shape[1]
+    _require(cols & (cols - 1) == 0, "P*P must be a power of two")
+    out = torch.empty((k, 2), dtype=torch.float32, device=patches.device)
+    for s in range(0, k, _MOMENT_ROWS_PER_PASS):
+        p = flat[s:s + _MOMENT_ROWS_PER_PASS, :, None] * weights
+        h = cols
+        while h > 1:
+            h //= 2
+            p = p[:, :h] + p[:, h:]
+        out[s:s + _MOMENT_ROWS_PER_PASS] = p[:, 0]
+    return out
+
+
+def orient_moments_plain(patches: torch.Tensor, valid: torch.Tensor,
+                         weights: torch.Tensor) -> torch.Tensor:
+    """[K] float32 intensity-centroid angles of ``[K, P, P]`` float32
+    patches: ``atan2(m01, m10)`` of :func:`moment_sums_plain`, 0 for
+    invalid rows."""
+    m = moment_sums_plain(patches, weights)
+    return torch.where(valid, torch.atan2(m[:, 1], m[:, 0]), 0.0)
+
+
+def orient_moments(patches: torch.Tensor, valid: torch.Tensor,
+                   weights: torch.Tensor) -> torch.Tensor:
+    """:func:`orient_moments_plain` of ``[K, 32, 32]`` patches; on CUDA
+    tensors one launch of kernel M (a warp a keypoint: the tree's first
+    five levels in each lane's registers, the last five by shuffles; no
+    FMA). Bitwise equal to the plain version."""
+    _require(patches.dim() == 3 and patches.shape[1:] == (orb.PATCH,
+                                                          orb.PATCH)
+             and patches.dtype == torch.float32,
+             "patches must be [K, 32, 32] float32")
+    _require(valid.shape == patches.shape[:1] and valid.dtype == torch.bool,
+             "valid must be [K] bool")
+    _require(weights.shape == (orb.PATCH * orb.PATCH, 2)
+             and weights.dtype == torch.float32,
+             "weights must be [1024, 2] float32")
+    if not _on_cuda(patches, valid, weights):
+        return orient_moments_plain(patches, valid, weights)
+    patches = patches.contiguous()
+    weights = weights.contiguous()
+    _require(weights.data_ptr() % 8 == 0, "weights must be 8-byte aligned")
+    # converted copies stay bound until the launch returns (see hamming_nn)
+    valid = valid.contiguous().view(torch.uint8)
+    angle = torch.empty(patches.shape[0], dtype=torch.float32,
+                        device=patches.device)
+    _launch("orient_moments", patches.device, patches.data_ptr(),
+            valid.data_ptr(), weights.data_ptr(), angle.data_ptr(),
+            patches.shape[0])
+    return angle

@@ -173,17 +173,93 @@ def resize_bilinear(imgs: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return out
 
 
+MAX_TAPS = 8   # taps an output may have in :func:`resize_taps`
+
+
+@functools.cache
+def resize_taps(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """The banded form of :func:`resize_weights` rounded to bfloat16: for
+    each output index ``o``, ``start[o]`` and the ``T`` weights of inputs
+    ``start[o] .. start[o] + T - 1`` (``[out_size]`` int32 and
+    ``[out_size, T]`` float32). ``T`` is the most nonzero weights an output
+    has (3 at the ORB pyramid's scale 1.2, 4 at a halving); a window runs
+    from the output's first nonzero weight, moved back to end inside the
+    input where it would not, so every nonzero weight lies in it and the
+    rest are zeros. An axis that keeps its size gets one tap of 1.0, which
+    leaves a bfloat16 input as it is. Raises above :data:`MAX_TAPS`."""
+    if in_size == out_size:
+        return (np.arange(out_size, dtype=np.int32),
+                np.ones((out_size, 1), np.float32))
+    w = torch.from_numpy(resize_weights(in_size, out_size)).to(
+        torch.bfloat16).to(torch.float32).numpy()
+    nz = w != 0
+    taps = max(1, int(nz.sum(0).max()))
+    if taps > MAX_TAPS:
+        raise ValueError(f"resize {in_size} -> {out_size} needs {taps} taps "
+                         f"an output, above {MAX_TAPS}")
+    start = np.minimum(np.argmax(nz, axis=0), in_size - taps).astype(np.int32)
+    idx = start[:, None] + np.arange(taps)
+    return start, w[idx, np.arange(out_size)[:, None]]
+
+
+@functools.lru_cache(maxsize=64)
+def device_taps(in_size: int, out_size: int, device: torch.device):
+    """:func:`resize_taps` on ``device``, kept (never written to): a copy
+    from host memory per call would be a host sync per pyramid level."""
+    start, band = resize_taps(in_size, out_size)
+    return (torch.from_numpy(start).to(device),
+            torch.from_numpy(band).to(device))
+
+
+def _banded_pass(x: torch.Tensor, dim: int, out_size: int) -> torch.Tensor:
+    """One axis of :func:`resize_banded`: ``acc = w_0 * x[start]``, then
+    ``acc = acc + w_k * x[start + k]`` for k = 1 .. T-1 in float32, rounded
+    to bfloat16."""
+    start, band = device_taps(x.shape[dim], out_size, x.device)
+    shape = [1] * x.dim()
+    shape[dim] = out_size
+    acc = None
+    for k in range(band.shape[1]):
+        term = (x.index_select(dim, start + k).to(torch.float32)
+                * band[:, k].reshape(shape))
+        acc = term if acc is None else acc + term
+    return acc.to(torch.bfloat16)
+
+
+def resize_banded(imgs: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """:func:`resize_bilinear` of ``[..., H, W]`` bfloat16 frames in a fixed
+    order: each axis walks only its nonzero taps (:func:`resize_taps`), in
+    ascending input index, in float32; rows first unless ``h > w``; each
+    pass rounded to bfloat16. Every product of two bfloat16 values is exact
+    in float32, so only the order of the adds could move a bit, and it is
+    fixed here: bitwise equal to the dense products on the CPU fixtures,
+    and the plain version of the pyramid kernel (J)."""
+    h, w = imgs.shape[-2:]
+    dims = [(-2, out_h), (-1, out_w)]
+    if h > w:
+        dims.reverse()
+    out = imgs.to(torch.bfloat16)
+    for dim, n in dims:
+        out = _banded_pass(out, dim, n)
+    return out
+
+
 def pyramid(imgs: torch.Tensor, num_levels: int,
             scale_factor: float) -> list[torch.Tensor]:
     """ORB pyramid of ``[B, H, W]`` float32 frames: level L is level L-1
     resized by ``1/scale_factor``, the chain run in bfloat16 as the JAX
-    package runs it (level 0 is the input itself). Returns float32 levels."""
+    package runs it (level 0 is the input itself). Returns float32 levels.
+    Each level is one launch of the pyramid kernel (J) on a CUDA tensor,
+    :func:`resize_banded` on a CPU one: its sums are in a fixed order, so
+    a level's bits do not depend on the batch size."""
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels
+
     levels = [imgs]
     h, w = imgs.shape[-2:]
-    prev = imgs.to(torch.bfloat16)
+    prev = imgs
     for lvl in range(1, num_levels):
         s = scale_factor ** lvl
         nh, nw = max(8, int(round(h / s))), max(8, int(round(w / s)))
-        prev = resize_bilinear(prev, nh, nw)
-        levels.append(prev.to(torch.float32))
+        prev, level = cuda_kernels.pyramid_level(prev, nh, nw)
+        levels.append(level)
     return levels

@@ -9,8 +9,8 @@ written out):
    blur;
 2. one 32x32 patch of the blurred level per keypoint
    (:func:`extract_patches_fast`, a CUDA kernel on the card);
-3. the intensity-centroid angle from ONE moment product
-   (:func:`orientation_from_patches`);
+3. the intensity-centroid angle from the moments summed in a fixed order
+   (:func:`orientation_from_patches`, a CUDA kernel on the card);
 4. rotated BRIEF with the rotation quantized to 30 bins: per bin one
    product of the bf16 patches with the bin's +-1 difference matrix; a bit
    is ``sign(bf16(B) - bf16(A))`` (:func:`brief_from_patches_binned`).
@@ -185,10 +185,12 @@ def _orientation_moment_weights(patch: int = PATCH,
 def orientation_from_patches(patches: torch.Tensor, valid: torch.Tensor,
                              weights: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid angles of ``[K, P, P]`` patches: the (m10, m01)
-    moments are ONE [K, P*P] @ [P*P, 2] float32 product. [K] radians, 0 for
-    invalid rows."""
-    m = patches.reshape(patches.shape[0], -1) @ weights
-    return torch.where(valid, torch.atan2(m[:, 1], m[:, 0]), 0.0)
+    moments against ``weights`` [P*P, 2], summed in a fixed pairwise order
+    (kernel M on the card, its plain version on the CPU), so an angle's bits
+    depend on its patch alone, not on K. [K] radians, 0 for invalid rows."""
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels
+
+    return cuda_kernels.orient_moments(patches, valid, weights)
 
 
 @functools.lru_cache(maxsize=8)

@@ -111,8 +111,9 @@ def load() -> ctypes.CDLL:
         "slam_band_count_tiles": (p, p, p, p, p, i, i, i, f, p),
         # packed, valid, qidx, tidx, out, p_cnt, n, scale, stream
         "slam_pair_counts": (p, p, p, p, p, i, i, f, p),
-        # q, t, valid_q, valid_t, d1, idx, m, n, stream
-        "slam_hamming_nn": (p, p, p, p, p, p, i, i, p),
+        # q, t, valid_q, valid_t, d1, idx, partial, tickets, m, n, splits,
+        # stream
+        "slam_hamming_nn": (p, p, p, p, p, p, p, p, i, i, i, p),
         # q, t, valid_q, valid_t, qidx, tidx, d1, idx, d2, partial, tickets,
         # p_cnt, n_q, n_t, splits, stream
         "slam_hamming_knn2": (p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p),
@@ -127,6 +128,14 @@ def load() -> ctypes.CDLL:
         # q, t, valid_q, valid_t, qidx, tidx, d1, idx, d2, partial, tickets,
         # p_cnt, n_q, n_t, splits, stream
         "slam_l2_knn2": (p, p, p, p, p, p, p, p, p, p, i, i, i, i, p),
+        # x, x is bf16, out bf16, out f32, row starts, row weights, row taps,
+        # column starts, column weights, column taps, b, h, w, oh, ow,
+        # rows first, span, stream
+        "slam_pyramid_level": (p, i, p, p, p, p, i, p, p, i, i, i, i, i, i, i,
+                               i, p),
+        # patches [k, 32, 32], valid [k], weights [1024, 2], angle [k], k,
+        # stream
+        "slam_orient_moments": (p, p, p, p, i, p),
         # img, gauss, resp, host taps [levels, 19], host radii [levels],
         # levels, b, h, w, s (0: gauss only), thr, edge_r, (edge_r + 1)^2,
         # border, stream

@@ -9,7 +9,8 @@ device (the CPU test run); on a machine with a card and nvcc:
 not use.) Integer outputs, the FAST score and the blur are bitwise equal;
 so are the nearest-neighbour (D), top-2 (F), motion-support (E) and
 frame-pair count (K5) and d1-only nearest-neighbour (I) kernels, the SIFT
-octave kernel (H) in both modes,
+octave kernel (H) in both modes, the pyramid level (J) and the
+orientation moments (M), and the ORB front-end across batch sizes (F9),
 and the squared-L2 top-2 kernel (G) on integer-valued descriptors (on real
 ones its dot products sum in another order than cuBLAS's: distances within
 1e-5).
@@ -30,7 +31,7 @@ from slam_loop_closing_tpu_torch.models.loop_closing import LoopClosingSystem
 from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
 from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
 from slam_loop_closing_tpu_torch.ops import image as image_ops
-from slam_loop_closing_tpu_torch.ops import matching, sift
+from slam_loop_closing_tpu_torch.ops import matching, orb, sift
 from slam_loop_closing_tpu_torch.utils.synth_video import orbit_sequence
 
 torch.set_num_threads(1)
@@ -698,3 +699,113 @@ def test_gauss_stack_resp_kernel_bitwise(dev, b, h, w, emit_resp):
         assert torch.equal(got[1], ref[1]) and int((got[1] > 0).sum()) > 5
     else:
         assert got[1] is None and ref[1] is None
+
+
+def _block_frames(rng, b, h, w):
+    """[b, h, w] uint8 frames of 16-px blocks of random grey with 8-bit
+    noise over them: corners at every block edge for FAST."""
+    base = rng.integers(0, 256, (b, h // 16 + 1, w // 16 + 1))
+    img = np.repeat(np.repeat(base, 16, 1), 16, 2)[:, :h, :w]
+    return np.clip(img + rng.integers(-8, 9, (b, h, w)), 0, 255).astype(
+        np.uint8)
+
+
+@pytest.mark.parametrize("b,h,w", [(8, 1080, 1920), (1, 1080, 1920),
+                                   (2, 540, 960), (2, 160, 120),
+                                   (3, 37, 61), (2, 8, 40), (2, 40, 9)])
+def test_pyramid_level_kernel_bitwise(dev, b, h, w):
+    """Kernel J against its plain version down four pyramid levels at scale
+    1.2 (1080p as 8 frames and as the live path's one, the 540x960 levels,
+    a portrait frame (columns first), odd sizes, the max(8, ...) floor that
+    keeps an axis as it is): both outputs bitwise, the first level from
+    float32 frames, the later ones from the bfloat16 level before; one
+    launch count a level."""
+    rng = np.random.default_rng(h * w + b)
+    x = image_ops.ship_frames(_block_frames(rng, b, h, w), dev)
+    for lvl in range(1, 4):
+        nh = max(8, int(round(h / 1.2 ** lvl)))
+        nw = max(8, int(round(w / 1.2 ** lvl)))
+        before = ck.LAUNCHES["pyramid_level"]
+        got = ck.pyramid_level(x, nh, nw)
+        assert ck.LAUNCHES["pyramid_level"] == before + 1
+        ref = ck.pyramid_level_plain(x, nh, nw)
+        assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        x = got[0]
+
+
+@pytest.mark.parametrize("k", [1, 7, 2000, 192000])
+def test_orient_moments_kernel_bitwise(dev, k):
+    """Kernel M against its plain version: noise patches, rows of zeros
+    (atan2(0, 0)), constant rows and invalid rows; up to config 2's 96 x
+    2,000 keypoints of one batch."""
+    gen = torch.Generator(device=dev).manual_seed(k)
+    patches = torch.rand((k, 32, 32), generator=gen, device=dev)
+    patches[::5] = 0.0
+    patches[1::7] = 0.25
+    valid = torch.rand(k, generator=gen, device=dev) > 0.1
+    mw = torch.from_numpy(orb._orientation_moment_weights()).to(dev)
+    before = ck.LAUNCHES["orient_moments"]
+    got = ck.orient_moments(patches, valid, mw)
+    assert ck.LAUNCHES["orient_moments"] == before + 1
+    assert torch.equal(got, ck.orient_moments_plain(patches, valid, mw))
+
+
+@pytest.mark.parametrize("grid", [0, 8])
+def test_front_end_batch_invariant_on_card(dev, grid):
+    """F9's gate: the ORB front-end on the same 96 1080p frames at batch
+    sizes 1, 8, 50 and 96, the batches concatenated: pyramid levels,
+    keypoints, angles and packed descriptors bitwise equal."""
+    rng = np.random.default_rng(96)
+    frames = torch.from_numpy(_block_frames(rng, 96, 1080, 1920)).to(dev)
+    cfg = OrbConfig(num_features=2000, grid_cell=grid)
+    pattern = orb.brief_matrices(cfg, dev)
+    runs = {}
+    for batch in (1, 8, 50, 96):
+        outs = []
+        for s in range(0, 96, batch):
+            imgs = image_ops.ship_frames(frames[s:s + batch], dev)
+            f = orb.detect_and_describe_batch(imgs, cfg, pattern)
+            kp = f.keypoints
+            levels = image_ops.pyramid(imgs, cfg.num_levels, cfg.scale_factor)
+            outs.append([lv[:, ::7, ::7] for lv in levels[1:]]
+                        + [kp.xy, kp.valid, kp.response, kp.octave, kp.angle,
+                           f.descriptors])
+        runs[batch] = [torch.cat(parts) for parts in zip(*outs)]
+    names = ["level 1", "level 2", "level 3", "xy", "valid", "response",
+             "octave", "angle", "descriptors"]
+    for batch in (8, 50, 96):
+        for name, a, b in zip(names, runs[1], runs[batch]):
+            assert torch.equal(a, b), f"{name} differs at batch {batch}"
+    assert int(runs[1][4].sum()) > 96 * 1500
+
+
+def test_hamming_nn_kernel_split_sweep(dev, monkeypatch):
+    """Kernel D at the live shape (2,000 x 2,000) with the target split
+    forced to every count from 1 to 16, each launched twice in a row (the
+    tickets must be back at zero): duplicated targets (ties to the lowest
+    index), queries equal to targets, invalid rows on both sides, a query
+    whose only equal target is invalid, and no valid target at all."""
+    rng = np.random.default_rng(2000)
+    sq, st = _signed(rng, 2000), _signed(rng, 2000)
+    st[1000:1040] = st[:40]
+    sq[:40] = st[:40]
+    st[1500] = sq[60]
+    vq = torch.from_numpy(rng.random(2000) > 0.05).to(dev)
+    vt = torch.from_numpy(rng.random(2000) > 0.05).to(dev)
+    vq[:40] = vt[:40] = vt[1000:1040] = True
+    vq[60], vt[1500] = True, False
+    pq = desc_ops.signed_to_packed(torch.from_numpy(sq).to(dev))
+    pt = desc_ops.signed_to_packed(torch.from_numpy(st).to(dev))
+    none = torch.zeros_like(vt)
+    refs = [ck.hamming_nn_plain(pq, vq, pt, v) for v in (vt, none)]
+    d1, idx = (t.cpu() for t in refs[0])
+    assert (d1[:40] == 0).all() and (idx[:40] == torch.arange(40)).all()
+    assert int(d1[60]) > 0 and (refs[1][0] == 2 ** 30).all()
+    for splits in range(1, 17):
+        monkeypatch.setattr(ck, "_target_splits", lambda *a, n=splits: n)
+        for v, ref in zip((vt, none), refs):
+            for _ in range(2):
+                got = ck.hamming_nn(pq, vq, pt, v)
+                assert all(torch.equal(g, r) for g, r in zip(got, ref)), \
+                    splits

@@ -112,3 +112,73 @@ def test_undistort_image(rng):
                                  torch.from_numpy(dist)).numpy()
     assert np.abs(ref - img).max() > 0.01             # the remap moves pixels
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+# the pyramid's level-to-level axes at 1080p and 540x960 (scale 1.2), the
+# SIFT octave's halving, odd sizes, and an upscale
+@pytest.mark.parametrize("n_in,n_out,taps", [
+    (1080, 900, 3), (900, 750, 3), (750, 625, 3), (1920, 1600, 3),
+    (1600, 1333, 3), (1333, 1111, 3), (540, 450, 3), (143, 119, 3),
+    (1080, 540, 4), (1920, 960, 4), (61, 30, 5), (40, 64, 2)])
+def test_resize_taps_hold_every_weight(n_in, n_out, taps):
+    """The tap table of kernel J against ``resize_weights`` rounded to
+    bfloat16: T is the most nonzero weights of an output, every nonzero
+    weight sits at its input index in its output's window, and the window
+    lies inside the input."""
+    start, band = timage.resize_taps(n_in, n_out)
+    assert band.shape == (n_out, taps) and start.dtype == np.int32
+    assert start.min() >= 0 and start.max() + taps <= n_in
+    dense = torch.from_numpy(timage.resize_weights(n_in, n_out)).to(
+        torch.bfloat16).to(torch.float32).numpy()
+    rebuilt = np.zeros_like(dense)
+    for k in range(taps):
+        rebuilt[start + k, np.arange(n_out)] += band[:, k]
+    np.testing.assert_array_equal(rebuilt, dense)
+
+
+def test_resize_taps_identity_and_limit():
+    """An axis that keeps its size is one tap of 1.0; a downscale that would
+    need more than MAX_TAPS taps an output raises."""
+    start, band = timage.resize_taps(8, 8)
+    np.testing.assert_array_equal(start, np.arange(8))
+    np.testing.assert_array_equal(band, np.ones((8, 1), np.float32))
+    with pytest.raises(ValueError):
+        timage.resize_taps(100, 20)
+
+
+# landscape, portrait (columns first), odd sizes, the max(8, ...) floor that
+# keeps an 8-row axis as it is, and a 9-row axis that still shrinks
+@pytest.mark.parametrize("h,w,out_h,out_w", [
+    (120, 160, 100, 133), (160, 120, 133, 100), (37, 61, 31, 51),
+    (61, 37, 51, 31), (8, 40, 8, 33), (40, 8, 33, 8), (9, 50, 8, 42)])
+def test_resize_banded_equals_dense(rng, h, w, out_h, out_w):
+    """Tolerance 0: the banded sum (kernel J's plain version) against the
+    dense products of ``resize_bilinear`` at bfloat16, on 8-bit noise and on
+    smooth frames."""
+    noise = rng.integers(0, 256, (2, h, w)) / 255.0
+    yy, xx = np.mgrid[0:h, 0:w]
+    smooth = 0.5 + 0.5 * np.sin(xx / 7.0 + yy / 11.0)
+    imgs = torch.from_numpy(np.concatenate([noise, smooth[None]]).astype(
+        np.float32)).to(torch.bfloat16)
+    got = timage.resize_banded(imgs, out_h, out_w)
+    ref = timage.resize_bilinear(imgs, out_h, out_w)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("h,w", [(240, 320), (191, 143)])
+def test_pyramid_level_plain_writes_both_levels(rng, h, w):
+    """``cuda_kernels.pyramid_level`` on a CPU tensor: the bfloat16 level the
+    next level reads and its float32 copy, from float32 frames (rounded to
+    bfloat16 first) and from the bfloat16 level before."""
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels
+
+    frames = torch.from_numpy((rng.integers(0, 256, (2, h, w)) / 255.0)
+                              .astype(np.float32))
+    lv_b, lv_f = cuda_kernels.pyramid_level(frames, 7 * h // 8, 7 * w // 8)
+    ref = timage.resize_bilinear(frames.to(torch.bfloat16), 7 * h // 8,
+                                 7 * w // 8)
+    assert torch.equal(lv_b, ref) and torch.equal(lv_f, ref.float())
+    nxt_b, _ = cuda_kernels.pyramid_level(lv_b, 3 * h // 4, 3 * w // 4)
+    assert torch.equal(nxt_b, timage.resize_bilinear(lv_b, 3 * h // 4,
+                                                     3 * w // 4))

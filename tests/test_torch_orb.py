@@ -74,10 +74,11 @@ def test_numpy_builders_bitwise():
 
 
 def test_orientation_and_binned_brief_on_same_patches(rng):
-    """Same patches in: angles within 1e-4 rad (measured 8.3e-5 on these
-    uniform-noise patches, whose moments nearly cancel; 2.2e-5 on patches
-    of rendered frames): the [K, 1024] @ [1024, 2] moment product sums in
-    another order than XLA's. BRIEF bits from the same angles: bitwise."""
+    """Same patches in: angles within 1e-4 rad (measured 4.7e-5 on these
+    uniform-noise patches, whose moments nearly cancel; 8.3e-5 when the
+    moments were one [K, 1024] @ [1024, 2] product): the moments sum in a
+    pairwise tree, another order than XLA's. BRIEF bits from the same
+    angles: bitwise."""
     patches = rng.random((300, 32, 32)).astype(np.float32)
     valid = rng.random(300) > 0.1
     mw = torb._orientation_moment_weights()
@@ -148,8 +149,9 @@ def test_front_end_descriptors_where_bins_agree(front_end_pair, grid):
     """Angles differ slightly (the blur's last bits, R2): a keypoint whose
     angle sits on a bin boundary may take the neighbouring bin. Bound: at
     most 1% of valid keypoints change bin (measured 0 of ~1000 here), angles
-    within 1e-4 rad (measured 4.8e-5); every keypoint whose bin agrees has
-    identical bits."""
+    within 1e-4 rad (measured 6.6e-5 with the moments' pairwise tree, 4.8e-5
+    with the earlier matmul); every keypoint whose bin agrees has identical
+    bits."""
     got, ref = front_end_pair[grid]
     valid = ref.keypoints.valid
     step = np.float32(2 * np.pi / 30)
@@ -255,3 +257,52 @@ def test_exact_rotation_brief_bits_equal(one_frame):
     got = torb.brief_from_patches(tp[0], tc[0], t(angle), t(valid),
                                   t(pattern)).numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+def _rendered_patches(n):
+    """``n`` 32x32 patches of a blurred orbit frame around random interior
+    points, and the moment weights."""
+    from slam_loop_closing_tpu_torch.ops import image as timage
+
+    img = orbit_sequence(num_frames=2, h=120, w=160, seed=1)[0]
+    blurred = timage.gaussian_blur(torch.from_numpy(img)[None], 2.0, 3)
+    rng = np.random.default_rng(n)
+    xy = keypoints(rng, 1, n, 120, 160, 19)
+    return torb.extract_patches(blurred, torch.from_numpy(xy))[0][0]
+
+
+@pytest.mark.parametrize("source", ["noise", "rendered"])
+def test_moment_tree_against_matmul(rng, source):
+    """Kernel M's plain moments (products rounded, a pairwise tree) against
+    the [K, 1024] @ [1024, 2] float32 product they replace: within 1e-5 of
+    the sum of the terms' magnitudes, the scale of their rounding (the
+    moments of noise patches nearly cancel, so no bound relative to the
+    moment itself holds)."""
+    patches = (torch.from_numpy(rng.random((300, 32, 32)).astype(np.float32))
+               if source == "noise" else _rendered_patches(300))
+    mw = torch.from_numpy(torb._orientation_moment_weights())
+    got = cuda_kernels.moment_sums_plain(patches, mw)
+    flat = patches.reshape(300, -1)
+    ref = flat @ mw
+    scale = flat.abs() @ mw.abs()
+    assert float(((got - ref).abs() / scale).max()) <= 1e-5
+    ang = cuda_kernels.orient_moments(patches, torch.ones(300, dtype=bool), mw)
+    assert torch.equal(ang, torch.atan2(got[:, 1], got[:, 0]))
+
+
+@pytest.mark.parametrize("n", [40, 120])
+def test_orient_moments_against_jax_orientation(one_frame, n):
+    """Kernel M's plain version on 32x32 patches of the frame around
+    interior keypoints against the JAX package's gather form ``orientation``
+    (the same circular window): within 1e-4 rad, 0 on invalid rows."""
+    img, _, xy, valid = one_frame
+    xy, valid = xy[:n], valid[:n]
+    patches = torb.extract_patches(torch.from_numpy(img)[None],
+                                   torch.from_numpy(xy)[None])[0][0]
+    got = cuda_kernels.orient_moments(
+        patches, torch.from_numpy(valid),
+        torch.from_numpy(torb._orientation_moment_weights())).numpy()
+    ref = np.asarray(jorb.orientation(jnp.asarray(img), jnp.asarray(xy),
+                                      jnp.asarray(valid)))
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+    assert not got[~valid].any()

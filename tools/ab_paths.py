@@ -18,7 +18,11 @@ per path, every repeat:
 * ``process_stream`` of the same frames from host memory (per-frame median
   and p90 ms, 2 passes after a warm-up);
 * BASELINE config 2's front-end, 500 x 1080p ORB-4000 grid 8 in batches of
-  50, and its dense all-pairs counts (s, 2 runs);
+  50, and its dense all-pairs counts (s, 2 runs), and the front-end's peak
+  device memory over what was allocated before it;
+* for those three, one more run under the profiler (``process_stream``: 8
+  frames on a filled database): the device ms of all kernels and of the
+  eight longest by name;
 * ``process_videos_batched``, 6 x 48 x 540x960 (ms, 3 runs);
 * ``SfMPipeline.run`` resident, ORB (96 x 540x960) and SIFT (96 x 1080p),
   no OBJ (s, 2 runs each after a warm-up), then one run stage by stage,
@@ -152,6 +156,9 @@ def main() -> int:
         rec["process_video_ms"] = [1e3 * synced(lambda: LoopClosingSystem(
             cfg, max_frames=96, device=dev).process_video(video))[0]
             for _ in range(5)]
+        device_split(smoke, lambda: LoopClosingSystem(
+            cfg, max_frames=96, device=dev).process_video(video),
+            "process_video", rec)
         del video
 
     # process_stream from host memory
@@ -171,6 +178,14 @@ def main() -> int:
         rec["process_stream_median_ms"] = [float(np.median(x)) for x in lats]
         rec["process_stream_p90_ms"] = [float(np.percentile(x, 90))
                                         for x in lats]
+        # 8 more frames on a filled database, as chip_smoke.py profiles them
+        system = LoopClosingSystem(cfg, max_frames=smoke.MAX_FRAMES,
+                                   log=lambda _: None, device=dev)
+        for _ in system.process_stream(fr["video"]):
+            pass
+        device_split(smoke, lambda: list(system.process_stream(
+            fr["video"][:8])), "process_stream_8_frames", rec)
+        del system
 
     # config 2: front-end in batches of 50, then the dense counts
     ocfg = OrbConfig(num_features=smoke.C2_FEATURES, grid_cell=8)
@@ -193,6 +208,14 @@ def main() -> int:
             t_fe, store = synced(front_end)
             rec["config2_front_end_s"].append(t_fe)
             rec["config2_dense_s"].append(synced(lambda: dense(store))[0])
+        del store
+        device_split(smoke, front_end, "config2_front_end", rec)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        store = front_end()
+        torch.cuda.synchronize()
+        rec["config2_front_end_peak_gb"] = (
+            torch.cuda.max_memory_allocated() - base) / 1e9
         del store, c2
         torch.cuda.empty_cache()
 
@@ -269,6 +292,22 @@ def main() -> int:
         lambda: ck.l2_knn2(desc, vd, desc, vd, qi[-1:], ti[-1:]), 50)
     print(json.dumps(rec), flush=True)
     return 0
+
+
+def device_split(smoke, fn, name: str, rec: dict, top: int = 8) -> None:
+    """One run of ``fn`` under the profiler: its wall seconds, the summed
+    device ms of all its kernels and of the ``top`` kernels by device time
+    (named by the profiler, so either tree's kernels show), into ``rec``."""
+    _, prof, wall = smoke.profiled(fn)
+    busy = {}
+    for e in prof.key_averages():
+        busy[e.key] = busy.get(e.key, 0.0) + getattr(
+            e, "self_device_time_total", 0.0) / 1e3
+    rec[f"{name}_profiled_wall_ms"] = wall * 1e3
+    rec[f"{name}_device_ms"] = sum(busy.values())
+    rec[f"{name}_top_kernels_ms"] = {
+        k[:60]: round(v, 4) for k, v in sorted(
+            busy.items(), key=lambda kv: -kv[1])[:top]}
 
 
 def kernels_ef(smoke, ck, dev, rec: dict) -> None:
