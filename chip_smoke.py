@@ -147,11 +147,33 @@ each printed with its result and seconds on its own line:
     phase 9's configuration as ``--config`` (most frames become keyframes,
     BA lowers the reprojection error, no OBJ is written), and six rendered
     chessboard views through ``cli.main(["calibrate", ...])``:
-    RMS below 1 px.
+    RMS below 1 px;
+17. the sharded paths (``slam_loop_closing_tpu_torch.parallel``) at world
+    size 1 over NCCL, each where its inputs are made: ``frontend_sharded``
+    on phase 4's frames (every field bitwise equal to
+    ``detect_and_describe_batch``); ``sfm_reconstruct_sharded`` (with
+    ``pgo_sharded`` and ``ba_sharded`` inside) on phase 8's frames against
+    the staged single-device twin (keyframes, loop, point counts equal,
+    poses within 1e-3, the final error within 1e-2), both with the
+    scatter order fixed (``torch.use_deterministic_algorithms``: with
+    float atomics two runs of the twin alone differ in their poses, and
+    the phase prints by how much); ``verify_pairs_sharded`` on 256
+    synthetic pairs x 1,000 matches at 1,024 hypotheses (every field equal
+    to ``estimate_essential_ransac_pairs`` with the same noise);
+    ``pgo_sharded`` at BASELINE config 5 (bench_pgo.py's 10,000-pose graph,
+    PCG) within 1e-4 of ``optimize_pose_graph``; ``banded_loop_counts`` on
+    phase 14's store at gap 30 (the ring's raw matrix zero exactly on the
+    tiles the JAX rule skips and the pair route's elsewhere, the band
+    bitwise, the same loops, one K5 launch a step);
+    ``process_videos_sharded`` on phase 15's videos (loops equal);
+    the native PNG decoder on phase 16's frames where it builds (within
+    1/255 of PIL, both times); last the port's dry run. Each prints its
+    wall, profiler device and NCCL-kernel ms and idle share; the
+    ``{"sharded_paths": ...}`` line holds them.
 
 Synthetic frames are rendered by a pool of worker processes (numpy only).
-Each main path runs with the launch counts set to 0 just before it and read
-just after; process_video, process_stream (8 frames), both SfM runs, config
+Each main path, the sharded ones included, runs with the launch counts
+set to 0 just before it and read just after; process_video, process_stream (8 frames), both SfM runs, config
 2 (front-end + dense) and the multi-video path also run once under the
 profiler, which gives each kernel's summed device time over that path (the
 line before the kernels' JSON). Any failure raises (exit code 1). The line
@@ -189,6 +211,7 @@ import dataclasses
 import io
 import json
 import multiprocessing
+import os
 import re
 import subprocess
 import sys
@@ -2259,9 +2282,11 @@ def config2_front_end(frames_dev, cfg, pattern, dev):
     return torch.cat(s_chunks), torch.cat(v_chunks)
 
 
-def run_config2(frames_u8: np.ndarray, bench: dict, dev, device_ms: dict):
-    """BASELINE config 2, the dense all-pairs main path at full width:
-    returns (launch counts of the timed run, kernel I's record)."""
+def run_config2(frames_u8: np.ndarray, bench: dict, dev, device_ms: dict,
+                mesh, sharded_rec: dict):
+    """BASELINE config 2, the dense all-pairs main path at full width, and
+    the ring's banded counts on its store: returns (launch counts of the
+    timed run, kernel I's record, the ring's launch counts)."""
     import torch
 
     from slam_loop_closing_tpu_torch.config import LoopConfig, OrbConfig
@@ -2385,11 +2410,16 @@ def run_config2(frames_u8: np.ndarray, bench: dict, dev, device_ms: dict):
           f"kernel C: the same [{b}, {b}] matrix; {t_tiles:.3f} s = "
           f"{row_pairs / t_tiles / 1e9:.1f} G row pairs/s (pair route "
           f"{t_dense:.3f} s)")
-    return launches, record
+    ring_launches = run_sharded_band(mesh, signed, valid, nfeat, cnp,
+                                     loop_cfg.min_loop_gap, device_ms,
+                                     sharded_rec)
+    return launches, record, ring_launches
 
 
-def run_multivideo(videos_u8: np.ndarray, dev, device_ms: dict) -> dict:
-    """bench_multivideo.py's main path; returns the timed run's launches."""
+def run_multivideo(videos_u8: np.ndarray, dev, device_ms: dict, mesh,
+                   sharded_rec: dict):
+    """bench_multivideo.py's main path, then ``process_videos_sharded`` on
+    the same videos; returns both timed runs' launches."""
     import torch
 
     from slam_loop_closing_tpu_torch.config import (LoopConfig, OrbConfig,
@@ -2458,7 +2488,8 @@ def run_multivideo(videos_u8: np.ndarray, dev, device_ms: dict) -> dict:
     _, prof, _ = profiled(lambda: LoopClosingSystem.process_videos_batched(
         videos_u8, cfg, device=dev))
     kernel_device_ms(prof, "process_videos_batched", device_ms)
-    return launches
+    return launches, run_sharded_videos(mesh, videos_u8, cfg, loops,
+                                        device_ms, sharded_rec)
 
 
 def run_multi_loop(dev) -> dict:
@@ -2559,6 +2590,557 @@ def run_multi_loop(dev) -> dict:
           f"nearest distances {int(d1.min())}-"
           f"{int(d1[d1 < 2 ** 30].max())}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the sharded paths (parallel/) at world size 1 over NCCL
+# ---------------------------------------------------------------------------
+
+TIMING_RUNS = 5          # synchronized calls a sharded phase times
+
+
+def sharded_timing(fn):
+    """``fn()`` timed and profiled after the caller's own first run: the
+    median wall seconds of ``TIMING_RUNS`` synchronized calls (each call's
+    in ``walls_ms``), then one call under the profiler: its device ms
+    (kernels, copies and memsets), the ms of the kernels whose name has
+    "nccl", its idle share and the profile; ``outs`` holds every call's
+    result, for the caller to check."""
+    import torch
+
+    walls, outs = [], []
+    for _ in range(TIMING_RUNS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    out, prof, pwall = profiled(fn)
+    outs.append(out)
+    events = prof.key_averages()
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in events) / 1e3
+    nccl = sum(getattr(e, "self_device_time_total", 0.0) for e in events
+               if "nccl" in e.key.lower()) / 1e3
+    return dict(wall_ms=float(np.median(walls)), walls_ms=walls,
+                device_ms=busy, nccl_ms=nccl,
+                idle=max(0.0, 1.0 - busy / (pwall * 1e3)), prof=prof,
+                outs=outs)
+
+
+def timing_text(t: dict) -> str:
+    return (f"wall {t['wall_ms']:.2f} ms a call (median of {TIMING_RUNS}: "
+            f"{', '.join(f'{w:.2f}' for w in t['walls_ms'])}); under the "
+            f"profiler device "
+            f"{t['device_ms']:.3f} ms (NCCL kernels {t['nccl_ms']:.4f} ms), "
+            f"idle share {t['idle']:.0%}")
+
+
+def sharded_phase(name: str, t0: float, result: str, t: dict,
+                  device_ms: dict, sharded: dict) -> None:
+    sharded[name] = {k: round(v, 4) for k, v in t.items()
+                     if isinstance(v, float)}
+    sharded[name]["walls_ms"] = [round(w, 4) for w in t["walls_ms"]]
+    phase(f"sharded {name}", t0, f"{result}; {timing_text(t)}")
+    kernel_device_ms(t["prof"], f"sharded {name}", device_ms)
+
+
+def counted(ck, fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after: (its result, the counts)."""
+    ck.reset_launch_counts()
+    out = fn()
+    return out, dict(ck.LAUNCHES)
+
+
+def run_sharded_frontend(mesh, frames_dev, device_ms: dict,
+                         sharded_rec: dict) -> dict:
+    """``frontend_sharded`` on the headline's 96 x 1080p frames, bitwise
+    equal to ``detect_and_describe_batch``; returns its launches."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    from slam_loop_closing_tpu_torch.ops import image as image_ops
+    from slam_loop_closing_tpu_torch.ops import orb
+    from slam_loop_closing_tpu_torch.parallel import sharded
+
+    t0 = time.perf_counter()
+    cfg = slice_config().orb
+    pattern = orb.brief_matrices(cfg, mesh.device)
+    ref = orb.detect_and_describe_batch(
+        image_ops.ship_frames(frames_dev, mesh.device), cfg, pattern)
+
+    def check(got):
+        for a, b, what in zip(
+                (*got.keypoints, got.descriptors, got.signed),
+                (*ref.keypoints, ref.descriptors, ref.signed),
+                (*orb.Keypoints._fields, "descriptors", "signed")):
+            if not torch.equal(a, b):
+                raise AssertionError(f"frontend_sharded's {what} differ from "
+                                     "detect_and_describe_batch's")
+
+    got, launches = counted(ck, lambda: sharded.frontend_sharded(
+        mesh, frames_dev, cfg, pattern))
+    check(got)
+    if not all(launches[k] for k in ORB_KERNELS):
+        raise AssertionError(f"a kernel of the path did not run: {launches}")
+    t = sharded_timing(lambda: sharded.frontend_sharded(mesh, frames_dev,
+                                                        cfg, pattern))
+    for out in t["outs"]:
+        check(out)
+    sharded_phase("frontend_sharded", t0,
+                  f"{frames_dev.shape[0]} x {H}x{W} ORB-{NUM_FEATURES} grid "
+                  f"8 on {mesh.size} rank: every field of every call bitwise "
+                  f"equal to detect_and_describe_batch "
+                  f"({int(got.keypoints.valid.sum())} keypoints); launches "
+                  f"{launches}", t, device_ms,
+                  sharded_rec)
+    return launches
+
+
+def run_sharded_band(mesh, signed, valid, nfeat, cnp, gap: int,
+                     device_ms: dict, sharded_rec: dict) -> dict:
+    """``banded_loop_counts`` on config 2's store against the pair route's
+    matrix ``cnp`` (every t < q): the ring's raw matrix zero exactly on the
+    tiles the JAX rule skips and ``cnp`` elsewhere, the band's counts and
+    similarities bitwise the single-device route's, the same loops; returns
+    its launches."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.config import LoopConfig
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    from slam_loop_closing_tpu_torch.ops import matching
+    from slam_loop_closing_tpu_torch.parallel import mesh as mesh_lib
+    from slam_loop_closing_tpu_torch.parallel import sharded
+
+    t0 = time.perf_counter()
+    block = 8
+    b = signed.shape[0]
+    m = mesh.size * block
+    sp, _ = mesh_lib.pad_to_multiple(signed, m)
+    vp, _ = mesh_lib.pad_to_multiple(valid, m)
+    raw, raw_launches = counted(ck, lambda: sharded.ring_similarity_counts(
+        mesh, sp, vp, min_gap=gap, block=block))
+    raw = raw[:b, :b].cpu().numpy()
+    q = np.arange(b)[:, None] // block * block
+    t = np.arange(b)[None, :] // block * block
+    computed = t <= q + block - 1 - gap
+    if not np.array_equal(raw, np.where(computed, cnp, 0)):
+        raise AssertionError(
+            f"the ring's raw matrix differs from the pair route's on the "
+            f"computed tiles, or is not zero on the skipped ones, at "
+            f"{int((raw != np.where(computed, cnp, 0)).sum())} entries")
+    nf = torch.from_numpy(nfeat).to(mesh.device)
+    (counts, sims), launches = counted(ck, lambda: sharded.banded_loop_counts(
+        mesh, signed, valid, nf, gap, block=block))
+    band = np.arange(b)[None, :] <= np.arange(b)[:, None] - gap
+    counts = counts.cpu().numpy()
+    ref_counts = np.where(band, cnp, 0)
+    ref_sims = torch.where(torch.from_numpy(band).to(mesh.device),
+                           matching.similarity(
+                               torch.from_numpy(ref_counts).to(mesh.device),
+                               nf[:, None], nf[None, :]), 0.0)
+    if not np.array_equal(counts, ref_counts) or not torch.equal(sims,
+                                                                 ref_sims):
+        raise AssertionError("banded_loop_counts differs from the pair "
+                             "route's counts or similarities in the band")
+    rule = LoopConfig()
+    sims, ref_sims = sims.cpu().numpy(), ref_sims.cpu().numpy()
+    got = band & (sims > rule.loop_threshold) & (counts >= rule.min_matches)
+    loops = band & (ref_sims > rule.loop_threshold) & (
+        ref_counts >= rule.min_matches)
+    if not got.any() or not np.array_equal(got, loops):
+        raise AssertionError(f"the ring's loops differ from the pair "
+                             f"route's: {int((got != loops).sum())} pairs")
+    if launches["pair_counts"] != mesh.size or raw_launches[
+            "pair_counts"] != mesh.size:
+        raise AssertionError(f"the ring launched K5 {launches['pair_counts']} "
+                             f"times in {mesh.size} steps")
+    pairs = int(computed.sum())
+    nv = nfeat.astype(np.float64)
+    k5 = bound(b * signed.shape[1] * (32 + 1) + b * b * 4,
+               2 * 256 * float((nv[:, None] * nv[None, :])[computed].sum()),
+               "b1")
+    tt = sharded_timing(lambda: sharded.banded_loop_counts(
+        mesh, signed, valid, nf, gap, block=block))
+    for c, s in tt["outs"]:
+        if not (np.array_equal(c.cpu().numpy(), counts)
+                and np.array_equal(s.cpu().numpy(), sims)):
+            raise AssertionError("a timed call of banded_loop_counts differs "
+                                 "from the checked one")
+    sharded_phase("banded_loop_counts", t0,
+                  f"config 2's store, {b} x {signed.shape[1]} rows, gap "
+                  f"{gap}, {block}x{block}-frame tiles on {mesh.size} rank: "
+                  f"raw ring zero on the skipped tiles and equal to the pair "
+                  f"route's matrix on the {pairs} computed frame pairs; band "
+                  f"counts bitwise (every timed call the same); "
+                  f"{int(got.sum())} loops, the same set; "
+                  f"one K5 launch a step (its bound {k5['bound_ms']:.2f} ms, "
+                  f"by {k5['bound_by']}); launches {launches}", tt,
+                  device_ms, sharded_rec)
+    return launches
+
+
+def run_sharded_videos(mesh, videos_u8, cfg, loops, device_ms: dict,
+                       sharded_rec: dict) -> dict:
+    """``process_videos_sharded`` on the multi-video configuration, equal
+    to ``process_videos_batched``'s ``loops``; returns its launches."""
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    from slam_loop_closing_tpu_torch.parallel import sharded
+
+    t0 = time.perf_counter()
+    got, launches = counted(ck, lambda: sharded.process_videos_sharded(
+        mesh, videos_u8, cfg))
+    if got != loops:
+        raise AssertionError("process_videos_sharded's loops differ from "
+                             "process_videos_batched's")
+    if launches["band_count_tiles"] != 1 or not all(
+            launches[k] for k in MV_KERNELS):
+        raise AssertionError(f"multi-video sharded launches: {launches}")
+    t = sharded_timing(lambda: sharded.process_videos_sharded(
+        mesh, videos_u8, cfg))
+    if any(out != loops for out in t["outs"]):
+        raise AssertionError("a timed call of process_videos_sharded gave "
+                             "other loops")
+    v, b = videos_u8.shape[:2]
+    sharded_phase("process_videos_sharded", t0,
+                  f"{v} videos x {b} x {MV_H}x{MV_W} uint8 from host on "
+                  f"{mesh.size} rank: loops per video "
+                  f"{[len(x) for x in got]}, equal to process_videos_batched"
+                  f" in every call;"
+                  f" launches {launches}", t, device_ms, sharded_rec)
+    return launches
+
+
+VERIFY_PAIRS, VERIFY_POINTS, VERIFY_HYPOTHESES = 256, 1000, 1024
+
+
+def run_sharded_verify(mesh, device_ms: dict, sharded_rec: dict) -> None:
+    """``verify_pairs_sharded`` on 256 synthetic pairs x 1,000 matches at
+    1,024 hypotheses: every field equal to
+    ``estimate_essential_ransac_pairs`` with the same generator seed."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.config import RansacConfig
+    from slam_loop_closing_tpu_torch.ops import lie, ransac
+    from slam_loop_closing_tpu_torch.parallel import sharded
+
+    t0 = time.perf_counter()
+    dev = mesh.device
+    rng = np.random.default_rng(7)
+    p, n = VERIFY_PAIRS, VERIFY_POINTS
+    X = np.stack([rng.uniform(-3, 3, (p, n)), rng.uniform(-2, 2, (p, n)),
+                  rng.uniform(4, 12, (p, n))], -1)
+    R = lie.so3_exp(torch.tensor(rng.normal(0, 0.05, (p, 3)),
+                                 dtype=torch.float32)).numpy()
+    tr = np.stack([np.full(p, -1.0), rng.normal(0, 0.1, p),
+                   rng.normal(0, 0.1, p)], -1)
+    Xc = np.einsum("pij,pnj->pni", R, X) + tr[:, None]
+    x1 = X[..., :2] / X[..., 2:]
+    x2 = Xc[..., :2] / Xc[..., 2:] + rng.normal(0, 5e-4, (p, n, 2))
+    out = rng.random((p, n)) < rng.uniform(0.1, 0.4, (p, 1))
+    x2[out] = rng.uniform(-0.5, 0.5, (int(out.sum()), 2))
+    x1, x2 = (torch.tensor(a, dtype=torch.float32, device=dev)
+              for a in (x1, x2))
+    mask = torch.tensor(rng.random((p, n)) > 0.05, device=dev)
+    cfg = RansacConfig(num_hypotheses=VERIFY_HYPOTHESES)
+    focal = 0.8 * SFM_W
+
+    def gen():
+        g = torch.Generator(device=dev)
+        g.manual_seed(11)
+        return g
+
+    ref = ransac.estimate_essential_ransac_pairs(x1, x2, mask, gen(), focal,
+                                                 cfg)
+
+    def check(got):
+        for field, a, b in zip(ransac.EssentialResult._fields, got, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"verify_pairs_sharded's {field} "
+                                     "differs from "
+                                     "estimate_essential_ransac_pairs'")
+
+    check(sharded.verify_pairs_sharded(mesh, x1, x2, mask, gen(), focal, cfg))
+    inl = ref.num_inliers.cpu().numpy()
+    t = sharded_timing(lambda: sharded.verify_pairs_sharded(
+        mesh, x1, x2, mask, gen(), focal, cfg))
+    for out in t["outs"]:
+        check(out)
+    sharded_phase("verify_pairs_sharded", t0,
+                  f"{p} pairs x {n} matches (10-40% outliers), "
+                  f"{VERIFY_HYPOTHESES} hypotheses on {mesh.size} rank: every "
+                  f"field of every call equal to "
+                  f"estimate_essential_ransac_pairs given the same noise; "
+                  f"{int(ref.ok.sum())} pairs ok, inliers "
+                  f"{inl.min()}-{inl.max()}", t, device_ms, sharded_rec)
+
+
+@contextlib.contextmanager
+def fixed_scatter_order():
+    """``torch.use_deterministic_algorithms(True)`` inside the block: CUDA's
+    ``index_add_`` then sums in a fixed order instead of by float atomics,
+    so two runs of BA or PGO give the same bits (ROADMAP R10). An op with
+    no deterministic CUDA version raises rather than warns, so a block that
+    runs to its end ran in a fixed order throughout; cuBLAS is held to its
+    fixed-workspace setting (``CUBLAS_WORKSPACE_CONFIG``), which the mode
+    requires."""
+    import torch
+
+    before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if before is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = before
+
+
+PGO_POSES, PGO_LOOPS, PGO_ITERATIONS, PGO_CG = 10_000, 100, 10, 50
+PGO_ATOL = 1e-4                     # ROADMAP R10: the card's atomics
+
+
+def pgo_config5_graph(dev, n_poses=PGO_POSES, n_loops=PGO_LOOPS,
+                      noise=0.01, seed=0):
+    """BASELINE config 5's graph as benchmarks/bench_pgo.py builds it: a
+    noisy circle of ``n_poses`` poses, sequential edges and ``n_loops``
+    loop edges of weight 10 across half the circle."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.ops import pgo
+
+    rng = np.random.default_rng(seed)
+    angles = np.linspace(0, 2 * np.pi, n_poses, endpoint=False)
+    c, s = np.cos(angles), np.sin(angles)
+    clean_R = np.zeros((n_poses, 3, 3))
+    clean_R[:, 0, 0], clean_R[:, 0, 1] = c, -s
+    clean_R[:, 1, 0], clean_R[:, 1, 1] = s, c
+    clean_R[:, 2, 2] = 1.0
+    clean_t = np.stack([c, s, np.zeros(n_poses)], -1) * 50
+    params = np.concatenate([np.zeros((n_poses, 2)), angles[:, None],
+                             clean_t], -1)
+    params[1:] += rng.normal(0, noise, params[1:].shape)
+    loop_ids = rng.integers(n_poses // 2, n_poses, n_loops)
+    ef = np.concatenate([np.arange(n_poses - 1), loop_ids - n_poses // 2])
+    et = np.concatenate([np.arange(1, n_poses), loop_ids])
+    Rr = clean_R[et] @ clean_R[ef].transpose(0, 2, 1)
+    tr = clean_t[et] - np.einsum("eij,ej->ei", Rr, clean_t[ef])
+    w = np.where(et == ef + 1, 1.0, 10.0)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    g = pgo.PoseGraph(
+        e_from=torch.tensor(ef, device=dev), e_to=torch.tensor(et, device=dev),
+        R_rel=f32(Rr), t_rel=f32(tr), weight=f32(w),
+        mask=torch.ones(len(ef), dtype=torch.bool, device=dev))
+    return f32(params), g
+
+
+def run_sharded_pgo(mesh, device_ms: dict, sharded_rec: dict) -> None:
+    """``pgo_sharded`` at BASELINE config 5 (PCG) against
+    ``optimize_pose_graph``: poses within R10's 1e-4, both with the scatter
+    order fixed (and, as the path runs, with float atomics: two runs of the
+    single-device path alone differ by as much)."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.config import PgoConfig
+    from slam_loop_closing_tpu_torch.ops import pgo
+    from slam_loop_closing_tpu_torch.parallel import sharded
+
+    t0 = time.perf_counter()
+    params, g = pgo_config5_graph(mesh.device)
+    cfg = PgoConfig(dense_solver_max_poses=0, cg_iterations=PGO_CG)
+    atomics = [pgo.optimize_pose_graph(params, g, cfg, PGO_ITERATIONS)[0]
+               for _ in range(2)]
+    atomics.append(sharded.pgo_sharded(mesh, params, g, cfg,
+                                       PGO_ITERATIONS)[0])
+    spread = [float(torch.amax(torch.abs(a - atomics[0])))
+              for a in atomics[1:]]
+    with fixed_scatter_order():
+        ref, costs_ref = pgo.optimize_pose_graph(params, g, cfg,
+                                                 PGO_ITERATIONS)
+        got, costs = sharded.pgo_sharded(mesh, params, g, cfg,
+                                         PGO_ITERATIONS)
+    diff = float(torch.amax(torch.abs(got - ref)))
+    c0, c1, r1 = (float(costs[0]), float(costs[-1]), float(costs_ref[-1]))
+    if not diff <= PGO_ATOL or not c1 < 0.5 * c0:
+        raise AssertionError(f"pgo_sharded: max |difference| {diff} from "
+                             f"optimize_pose_graph, cost {c0} -> {c1}")
+    t_single = sharded_timing(lambda: pgo.optimize_pose_graph(
+        params, g, cfg, PGO_ITERATIONS))
+    t = sharded_timing(lambda: sharded.pgo_sharded(mesh, params, g, cfg,
+                                                   PGO_ITERATIONS))
+    # the timed calls run with float atomics: R10's bound holds them
+    timed = max(float(torch.amax(torch.abs(out[0] - ref)))
+                for out in t_single["outs"] + t["outs"])
+    if not timed <= PGO_ATOL:
+        raise AssertionError(f"a timed call of PGO is {timed} from "
+                             "optimize_pose_graph with the scatter order "
+                             "fixed")
+    sharded_phase("pgo_sharded", t0,
+                  f"BASELINE config 5: {PGO_POSES} poses, {PGO_LOOPS} loop "
+                  f"edges, {PGO_ITERATIONS} iterations of PCG "
+                  f"({PGO_CG} CG steps) on {mesh.size} rank: cost {c0:.6g} "
+                  f"-> {c1:.6g} (single device {r1:.6g}), poses within "
+                  f"{diff:.3g} of optimize_pose_graph with the scatter order "
+                  f"fixed (bound {PGO_ATOL:g}); with float atomics a second "
+                  f"single-device run differs by {spread[0]:.3g}, the sharded"
+                  f" run by {spread[1]:.3g}, every timed call within "
+                  f"{timed:.3g}; optimize_pose_graph alone: "
+                  f"{timing_text(t_single)}", t,
+                  device_ms, sharded_rec)
+
+
+SFM_TWIN_POSE_ATOL, SFM_TWIN_E2_ATOL = 1e-3, 1e-2   # tests/test_parallel.py
+
+
+def run_sharded_sfm(mesh, frames: np.ndarray, device_ms: dict,
+                    sharded_rec: dict) -> dict:
+    """``sfm_reconstruct_sharded`` (with ``ba_sharded`` and ``pgo_sharded``
+    inside) at the Version-B ORB configuration against the staged
+    single-device twin, both with the scatter order fixed: with float
+    atomics two runs of the twin alone differ in their poses far beyond the
+    bound (monocular BA's scale follows every accepted step), which the
+    phase prints; returns the sharded run's launches."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    from slam_loop_closing_tpu_torch.parallel import sharded
+
+    t0 = time.perf_counter()
+    n = frames.shape[0]
+    cfg = sfm_config()
+    frames_dev = torch.from_numpy(frames).to(mesh.device)
+
+    def twin():
+        pipe = sfm_pipeline(cfg, n, mesh.device)
+        s1, _ = pipe.run_frontend_and_keyframes_scan(frames_dev)
+        loop1 = pipe.find_loop(s1)
+        s1 = pipe.optimize(s1, loop1)
+        s1, _ = pipe.bundle_adjust(s1)
+        s1 = pipe.remove_outliers(s1)
+        s1, errs2 = pipe.bundle_adjust(s1, outer_iterations=3)
+        return s1, loop1, errs2
+
+    atomics = twin()[0].poses
+    with fixed_scatter_order():
+        s1, loop1, errs2 = twin()
+        torch.cuda.synchronize()
+        t_twin = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        (s2, m), launches = counted(
+            ck, lambda: sharded.sfm_reconstruct_sharded(
+                mesh, sfm_pipeline(cfg, n, mesh.device), frames_dev))
+        torch.cuda.synchronize()
+        t_sh = time.perf_counter() - t1
+    spread = float(torch.amax(torch.abs(atomics - s1.poses)))
+    pose_diff = float(torch.amax(torch.abs(s2.poses - s1.poses)))
+    e2 = float(errs2[-1])
+    same = (m["loop_found"] == loop1.found
+            and int(s2.kf_count) == int(s1.kf_count)
+            and int(s2.point_count) == int(s1.point_count)
+            and int(s2.point_valid.sum()) == int(s1.point_valid.sum()))
+    if not (same and loop1.found and pose_diff <= SFM_TWIN_POSE_ATOL
+            and abs(m["e2"] - e2) < SFM_TWIN_E2_ATOL):
+        raise AssertionError(
+            f"sfm_reconstruct_sharded against the staged twin: keyframes "
+            f"{int(s2.kf_count)}/{int(s1.kf_count)}, points "
+            f"{int(s2.point_count)}/{int(s1.point_count)}, loop "
+            f"{m['loop_found']}/{loop1.found}, poses within {pose_diff}, e2 "
+            f"{m['e2']} / {e2}")
+    if not all(launches[k] for k in SFM_KERNELS):
+        raise AssertionError(f"a kernel of the path did not run: {launches}")
+    t = sharded_timing(lambda: sharded.sfm_reconstruct_sharded(
+        mesh, sfm_pipeline(cfg, n, mesh.device), frames_dev))
+    # the timed calls run with float atomics (F12): their poses drift far
+    # beyond the twin's bound, their final errors scatter by a few 1e-3 px
+    # about the fixed-order value (0.2865-0.2972 against 0.2883 in six
+    # calls), so each call is held to the twin's keyframes, points and loop
+    # and their median final error to the twin's e2 bound
+    for s3, m3 in t["outs"]:
+        if not (m3["loop_found"] == loop1.found
+                and int(s3.kf_count) == int(s1.kf_count)
+                and int(s3.point_count) == int(s1.point_count)):
+            raise AssertionError(
+                f"a timed call of sfm_reconstruct_sharded against the staged "
+                f"twin: keyframes {int(s3.kf_count)}/{int(s1.kf_count)}, "
+                f"points {int(s3.point_count)}/{int(s1.point_count)}, loop "
+                f"{m3['loop_found']}/{loop1.found}")
+    e2_timed = [float(m3["e2"]) for _, m3 in t["outs"]]
+    if not abs(float(np.median(e2_timed)) - e2) < SFM_TWIN_E2_ATOL:
+        raise AssertionError(f"the timed calls' final errors {e2_timed} "
+                             f"against the twin's {e2}")
+    sharded_phase("sfm_reconstruct_sharded", t0,
+                  f"{n} x {SFM_H}x{SFM_W} resident, ORB-{SFM_FEATURES} grid "
+                  f"8, 1024 hypotheses on {mesh.size} rank: keyframes "
+                  f"{m['keyframes']}, points {int(s2.point_count)}, loop "
+                  f"found, as the staged twin; poses within {pose_diff:.3g} "
+                  f"(bound {SFM_TWIN_POSE_ATOL:g}) with the scatter order "
+                  f"fixed in both (the twin with float atomics: "
+                  f"{spread:.3g} from it), reprojection "
+                  f"{m['e0']:.4f} -> {m['e1']:.4f} -> {m['ef']:.4f} -> "
+                  f"{m['e2']:.4f} px (twin's final {e2:.4f}); twin runs "
+                  f"{t_twin:.3f} s in all, sharded {t_sh:.3f} s; the timed "
+                  f"calls with float atomics: keyframes, points and loop as "
+                  f"the twin, e2 {[round(e, 4) for e in e2_timed]} (median "
+                  f"{float(np.median(e2_timed)):.4f}); launches "
+                  f"{launches}", t, device_ms, sharded_rec)
+    return launches
+
+
+def run_sharded_dryrun(mesh, sharded_rec: dict) -> None:
+    """The port's dry run of every sharded stage at world size 1."""
+    from slam_loop_closing_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        s = dryrun.dryrun_multichip(mesh.size, device=mesh.device)
+    line = buf.getvalue().strip()
+    if line != dryrun.summary_line(s) or not s["loop_found"]:
+        raise AssertionError(f"dry run: {line!r}")
+    sharded_rec["dryrun"] = line
+    phase("sharded dry run", t0, line)
+
+
+def run_native_decoder(frames_u8: np.ndarray) -> None:
+    """The native PNG decoder (``utils.native``): whether it builds and,
+    where it does, the CLI frames decoded by it and by PIL (within 1/255),
+    with both times."""
+    from slam_loop_closing_tpu_torch.utils import io as io_utils
+    from slam_loop_closing_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        phase("native decoder", t0, "did not build or load ("
+              + str(native.last_error).replace("\n", " ")[-600:]
+              + "): the CLI reads frames with PIL")
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, f in enumerate(frames_u8):
+            paths.append(Path(tmp) / f"frame_{i:04d}.png")
+            io_utils._write_png(paths[-1], f)
+        t = time.perf_counter()
+        got = native.load_frames_gray_native(paths)
+        t_native = time.perf_counter() - t
+        t = time.perf_counter()
+        pil = np.stack([io_utils.load_frame_gray(p) for p in paths])
+        t_pil = time.perf_counter() - t
+        via_io = io_utils.load_frames_gray(paths)
+    err = float(np.abs(got - pil).max())
+    if not err <= 1 / 255 or not np.array_equal(via_io, got):
+        raise AssertionError(f"native decode differs from PIL by {err} or "
+                             "utils.io does not read with it")
+    phase("native decoder", t0,
+          f"built ({native.library_path().name}); {len(paths)} CLI frames "
+          f"{CLI_H}x{CLI_W}: within {err:.3g} of PIL (bound 1/255), "
+          f"utils.io.load_frames_gray reads with it; native "
+          f"{t_native * 1e3:.2f} ms, PIL {t_pil * 1e3:.2f} ms")
 
 
 def _cli(argv) -> str:
@@ -2688,6 +3270,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here ({e}); run "
               "from the repository's root", file=sys.stderr)
         return 1
+    from slam_loop_closing_tpu_torch.parallel import mesh as mesh_lib
     from slam_loop_closing_tpu_torch.utils import cuda_build
     dev = "cuda"
     t0 = time.perf_counter()
@@ -2710,6 +3293,13 @@ def main() -> int:
     phase("build", t0, f"{lib.name}")
 
     t0 = time.perf_counter()
+    mesh = mesh_lib.make_mesh(device=dev)
+    sharded_rec: dict = {}
+    phase("mesh", t0, f"{mesh.size} rank, backend "
+          f"{torch.distributed.get_backend()}, {mesh.device} (NCCL across "
+          "GPUs needs more than one card: not measured here)")
+
+    t0 = time.perf_counter()
     specs = [(FRAMES, H, W, 300, 0), (SFM_FRAMES, SFM_H, SFM_W, 400, 0),
              (SIFT_FRAMES, SIFT_H, SIFT_W, 400, 0),
              (C2_FRAMES, C2_H, C2_W, 400, 0), (CLI_FRAMES, CLI_H, CLI_W, 250, 3)]
@@ -2729,6 +3319,8 @@ def main() -> int:
     records, device_ms = check_kernels(frames_dev, dev), {}
     video_launches, video_loops = run_slice(frames_dev, dev, device_ms)
     stream_launches = run_stream(frames, dev, video_loops, device_ms)
+    fe_launches = run_sharded_frontend(mesh, frames_dev, device_ms,
+                                       sharded_rec)
     check_front_end_agreement(frames_dev, dev)
     check_cpu_agreement(dev)
     del frames, frames_dev
@@ -2740,7 +3332,12 @@ def main() -> int:
     sfm_launches = run_sfm(sfm_frames, sfm_config(),
                            f"ORB-{SFM_FEATURES} grid 8", SFM_KERNELS, dev,
                            device_ms)
+    sfm_sh_launches = run_sharded_sfm(mesh, sfm_frames, device_ms,
+                                      sharded_rec)
     check_sfm_agreement(dev)
+    torch.cuda.empty_cache()
+    run_sharded_verify(mesh, device_ms, sharded_rec)
+    run_sharded_pgo(mesh, device_ms, sharded_rec)
     torch.cuda.empty_cache()
 
     records.update(check_sift_kernels(sift_frames, dev))
@@ -2751,22 +3348,28 @@ def main() -> int:
     check_sift_agreement(dev)
     torch.cuda.empty_cache()
 
-    c2_launches, records["hamming_d1"] = run_config2(
-        c2_frames, check_d1_kernel(dev), dev, device_ms)
+    c2_launches, records["hamming_d1"], ring_launches = run_config2(
+        c2_frames, check_d1_kernel(dev), dev, device_ms, mesh, sharded_rec)
     del c2_frames
     torch.cuda.empty_cache()
-    mv_launches = run_multivideo(np.stack(videos), dev, device_ms)
+    mv_launches, mv_sh_launches = run_multivideo(
+        np.stack(videos), dev, device_ms, mesh, sharded_rec)
+    run_native_decoder(cli_frames)
     run_cli(cli_frames, dev)
     ml_launches = run_multi_loop(dev)
+    run_sharded_dryrun(mesh, sharded_rec)
+    torch.distributed.destroy_process_group()
 
     paths = (video_launches, stream_launches, sfm_launches, sift_launches,
-             c2_launches, mv_launches, ml_launches)
+             c2_launches, mv_launches, ml_launches, fe_launches,
+             sfm_sh_launches, ring_launches, mv_sh_launches)
     kernels = [dict(name=k, route="cuda",
                     source=f"slam_loop_closing_tpu_torch/csrc/{SOURCES[k]}",
                     replaces=REPLACES[k],
                     launches=sum(path[k] for path in paths),
                     **records[k])
                for k in ck.LAUNCHES]
+    print(json.dumps({"sharded_paths": sharded_rec}))
     print(json.dumps({"device_ms_by_path": device_ms}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

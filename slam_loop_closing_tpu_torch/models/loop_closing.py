@@ -196,9 +196,11 @@ def videos_loop_scores(videos, cfg: PipelineConfig, device):
     or tensor, uint8 or float in [0, 1]) -> ([V, B, B] int32 counts,
     [V, B, B] float32 similarities) on ``device``. The ORB front-end runs
     one video a batch, the batch :meth:`LoopClosingSystem.process_video`
-    gives it: cuBLAS may sum a product of another batch size in another
-    order, and a video's loops must not depend on the videos beside it. The
-    bands of all videos then go through ONE launch of the band-count kernel
+    gives it. Its bits no longer depend on the batch (kernels J and M fix
+    the order of every sum), so one batch over all videos would give the
+    same loops; that batching is a later item, gated by the card test
+    ``test_process_videos_batched_on_card_equals_per_video``. The bands of
+    all videos then go through ONE launch of the band-count kernel
     (:func:`..ops.matching.banded_pair_counts_videos`)."""
     pattern = orb.brief_matrices(cfg.orb, device)
     feats = [orb.detect_and_describe_batch(ship_frames(video, device),

@@ -548,6 +548,13 @@ class SfMPipeline:
         bucket (one readback of the largest valid count). Returns
         (descriptors: ORB's packed words [B, N, 8] int32 or SIFT's
         [B, N, 128] float32, valid, undistorted xy, normalized xy)."""
+        desc, xy, valid = self._frontend_detect(frames)
+        return self._frontend_cut(desc, xy, valid,
+                                  int(torch.amax(torch.sum(valid, dim=1))))
+
+    def _frontend_detect(self, frames):
+        """The detection half of :meth:`_frontend`: (descriptors, xy,
+        valid) of every frame, valid rows first, not cut."""
         sift_cfg = self.config.sift
         chunk = (sift_cfg.batch_chunk if self.config.detector == "sift"
                  else FRONTEND_CHUNK)
@@ -562,8 +569,12 @@ class SfMPipeline:
                                               self._pattern)
             parts.append((f.descriptors, f.keypoints.xy, f.keypoints.valid))
         desc, xy, valid = (torch.cat(p) for p in zip(*parts))
-        desc, xy, valid = matching.pack_valid_first(desc, xy, valid)
-        nv = int(torch.amax(torch.sum(valid, dim=1)))
+        return matching.pack_valid_first(desc, xy, valid)
+
+    def _frontend_cut(self, desc, xy, valid, nv: int):
+        """The rest of :meth:`_frontend`: every array cut to the count
+        bucket of ``nv`` valid rows (the largest count of any frame), the
+        keypoints undistorted and normalized."""
         nb = self._bucket_fine(max(nv, 128), desc.shape[1], floor=128,
                                step=512)
         desc, xy, valid = (desc[:, :nb].contiguous(), xy[:, :nb],
@@ -575,8 +586,10 @@ class SfMPipeline:
 
     # -- keyframe pass -----------------------------------------------------
 
-    def _keyframe_pass(self, frames, log_frames: bool):
-        desc, valid, und, norm = self._frontend(frames)
+    def _keyframe_pass(self, frames, log_frames: bool, features=None):
+        desc, valid, und, norm = (self._frontend(frames) if features is None
+                                  else features)
+        num_frames = desc.shape[0]
         # capacity = the compacted feature bucket, not the configured maximum
         state = init_map_state(self.max_keyframes, desc.shape[1],
                                self.max_points, self.max_obs, self.device,
@@ -585,7 +598,7 @@ class SfMPipeline:
         generator = torch.Generator(device=self.device)
         generator.manual_seed(KEYFRAME_SEED)
         infos, kf_index = [], 0
-        for f in range(1, frames.shape[0]):
+        for f in range(1, num_frames):
             state, info = _sfm_step(state, und[f], norm[f], valid[f], desc[f],
                                     f, self.K, self.config, generator)
             infos.append(info)
@@ -601,15 +614,18 @@ class SfMPipeline:
                     self.log.keyframe_accepted(f, kf_index, int(v[0]), v[1],
                                                int(v[2]))
                     self.log.triangulation_counters(*(int(x) for x in v[3:]))
-        self._log_keyframe_summary(state, frames.shape[0])
+        self._log_keyframe_summary(state, num_frames)
         return state, infos
 
-    def run_frontend_and_keyframes_scan(self, frames):
+    def run_frontend_and_keyframes_scan(self, frames, features=None):
         """The whole keyframe pass with no per-frame readback (the fast
         path; the math of :meth:`run_frontend_and_keyframes`, which reads
         one flag per frame for the reference's logging). Returns (state,
-        StepInfo of [B - 1] tensors)."""
-        state, infos = self._keyframe_pass(frames, log_frames=False)
+        StepInfo of [B - 1] tensors). ``features``, when given, are
+        :meth:`_frontend`'s outputs for ``frames`` (the sharded front-end's,
+        say), and the front-end does not run."""
+        state, infos = self._keyframe_pass(frames, log_frames=False,
+                                           features=features)
         return state, StepInfo(*(torch.stack(f) for f in zip(*infos)))
 
     def run_frontend_and_keyframes(self, frames):

@@ -14,6 +14,12 @@ per-camera / per-point select, so nothing is read back.
 
 On the card the scatter-adds are float atomics: their sum order, and so the
 last bits of the result, vary from run to run (ROADMAP R10).
+
+``reduce`` (default the identity) is applied to every sum over observations — the
+per-camera and per-point counts, errors and normal equations, and the mean
+error's sum and count — before anything decides on it: the
+observation-sharded BA of :mod:`..parallel.sharded` passes an all-reduce, so
+every rank accepts and rejects the same steps.
 """
 
 from __future__ import annotations
@@ -59,14 +65,19 @@ def reprojection_errors(K: torch.Tensor, cam_params: torch.Tensor,
     return torch.where(obs.valid, e, 0.0)
 
 
-def mean_reprojection_error(K, cam_params, points,
-                            obs: Observations) -> torch.Tensor:
+def _no_reduce(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def mean_reprojection_error(K, cam_params, points, obs: Observations,
+                            reduce=_no_reduce) -> torch.Tensor:
     """Mean pixel error over valid observations (reference
     ``computeReprojectionError`` main.cpp:871-896, the figure printed
     before/after BA, main.cpp:1543-1555)."""
     e = reprojection_errors(K, cam_params, points, obs)
     n = torch.sum(obs.valid, dtype=torch.float32)
-    return torch.sum(e) / torch.clamp_min(n, 1.0)
+    total, n = reduce(torch.stack([torch.sum(e), n]))
+    return total / torch.clamp_min(n, 1.0)
 
 
 def _per_obs_jacobians(K, cam_params, points, obs: Observations, argnum: int):
@@ -95,14 +106,16 @@ def _solve_damped(H: torch.Tensor, g: torch.Tensor,
     return -torch.linalg.solve_ex(Hd, g[..., None])[0][..., 0]
 
 
-def _scatter_sum(n: int, index: torch.Tensor, values: torch.Tensor):
+def _scatter_sum(n: int, index: torch.Tensor, values: torch.Tensor,
+                 reduce):
     out = torch.zeros((n, *values.shape[1:]), dtype=values.dtype,
                       device=values.device)
-    return out.index_add_(0, index.long(), values)
+    out.index_add_(0, index.long(), values)
+    return reduce(out)
 
 
 def _refine(K, cam_params, points, obs: Observations, argnum: int,
-            movable, iterations: int, damping: float):
+            movable, iterations: int, damping: float, reduce):
     """Shared Gauss-Newton loop of :func:`refine_cameras` (``argnum`` 1)
     and :func:`refine_points` (2), with per-entity LM acceptance: a step is
     kept only where that camera's (point's) total squared error does not
@@ -117,13 +130,15 @@ def _refine(K, cam_params, points, obs: Observations, argnum: int,
 
     def errs(x):
         return _scatter_sum(n, group,
-                            reprojection_errors(K, *args(x), obs) ** 2)
+                            reprojection_errors(K, *args(x), obs) ** 2,
+                            reduce)
 
     x, err_x = x0, errs(x0)
     for _ in range(iterations):
         r, J = _per_obs_jacobians(K, *args(x), obs, argnum)
-        H = _scatter_sum(n, group, torch.einsum("oik,oil->okl", J, J))
-        g = _scatter_sum(n, group, torch.einsum("oik,oi->ok", J, r))
+        H = _scatter_sum(n, group, torch.einsum("oik,oil->okl", J, J),
+                         reduce)
+        g = _scatter_sum(n, group, torch.einsum("oik,oi->ok", J, r), reduce)
         delta = torch.where(movable[:, None], _solve_damped(H, g, damping),
                             0.0)
         cand = x + delta
@@ -138,54 +153,60 @@ def refine_cameras(K: torch.Tensor, cam_params: torch.Tensor,
                    points: torch.Tensor, obs: Observations,
                    fixed_mask: torch.Tensor | None = None,
                    iterations: int = 5, damping: float = 1e-3,
-                   min_observations: int = 10) -> torch.Tensor:
+                   min_observations: int = 10,
+                   reduce=_no_reduce) -> torch.Tensor:
     """Motion-only GN for all cameras at once (reference
     ``refineCameraPoseGN`` main.cpp:632-743). Cameras with fewer than
     ``min_observations`` valid observations stay (main.cpp:648);
     ``fixed_mask`` freezes more (camera 0 during BA)."""
     counts = _scatter_sum(cam_params.shape[0], obs.cam,
-                          obs.valid.to(torch.int32))
+                          obs.valid.to(torch.int32), reduce)
     movable = counts >= min_observations
     if fixed_mask is not None:
         movable = movable & ~fixed_mask
     return _refine(K, cam_params, points, obs, 1, movable, iterations,
-                   damping)
+                   damping, reduce)
 
 
 def refine_points(K: torch.Tensor, cam_params: torch.Tensor,
                   points: torch.Tensor, obs: Observations,
                   point_valid: torch.Tensor | None = None,
                   iterations: int = 5, damping: float = 1e-3,
-                  min_observations: int = 2) -> torch.Tensor:
+                  min_observations: int = 2,
+                  reduce=_no_reduce) -> torch.Tensor:
     """Structure-only GN for all points at once (reference
     ``refinePointGN`` main.cpp:757-858)."""
     counts = _scatter_sum(points.shape[0], obs.point,
-                          obs.valid.to(torch.int32))
+                          obs.valid.to(torch.int32), reduce)
     movable = counts >= min_observations
     if point_valid is not None:
         movable = movable & point_valid
     return _refine(K, cam_params, points, obs, 2, movable, iterations,
-                   damping)
+                   damping, reduce)
 
 
 def alternating_ba(K: torch.Tensor, cam_params: torch.Tensor,
                    points: torch.Tensor, obs: Observations,
                    point_valid: torch.Tensor | None = None,
                    cfg: BaConfig = BaConfig(),
-                   outer_iterations: int | None = None):
+                   outer_iterations: int | None = None,
+                   reduce=_no_reduce):
     """Alternating BA (reference main.cpp:905-943): each outer iteration
     refines every camera (points fixed), then every point (cameras fixed).
     Camera 0 stays fixed as the gauge. Returns (cam_params, points,
-    [outer] mean reprojection errors)."""
+    [outer] mean reprojection errors). ``obs`` may be a shard of the
+    observations when ``reduce`` sums each partial sum over the shards (see
+    the module's docstring)."""
     outer = cfg.outer_iterations if outer_iterations is None \
         else outer_iterations
     fixed = torch.arange(cam_params.shape[0], device=cam_params.device) == 0
     cp, pts, errs = cam_params, points, []
     for _ in range(outer):
         cp = refine_cameras(K, cp, pts, obs, fixed, cfg.camera_gn_iterations,
-                            cfg.camera_damping, cfg.min_camera_observations)
+                            cfg.camera_damping, cfg.min_camera_observations,
+                            reduce)
         pts = refine_points(K, cp, pts, obs, point_valid,
                             cfg.point_gn_iterations, cfg.point_damping,
-                            cfg.min_point_observations)
-        errs.append(mean_reprojection_error(K, cp, pts, obs))
+                            cfg.min_point_observations, reduce)
+        errs.append(mean_reprojection_error(K, cp, pts, obs, reduce))
     return cp, pts, torch.stack(errs)

@@ -21,6 +21,12 @@ loop reads nothing back.
 
 On the card the scatter-adds are float atomics: their sum order, and so the
 last bits of the result, vary from run to run (ROADMAP R10).
+
+``reduce`` (default the identity) is applied to every sum over edges — the cost, the
+gradient, the Hessian's blocks and each CG iteration's Hessian-vector
+product — before anything decides on it: the edge-sharded PGO of
+:mod:`..parallel.sharded` passes an all-reduce, so every rank assembles the
+whole graph's normal equations from its shard and takes the same steps.
 """
 
 from __future__ import annotations
@@ -69,10 +75,15 @@ def residuals(params: torch.Tensor, g: PoseGraph) -> torch.Tensor:
     return torch.where(g.mask[:, None], r, 0.0)
 
 
-def total_cost(params: torch.Tensor, g: PoseGraph) -> torch.Tensor:
+def _no_reduce(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def total_cost(params: torch.Tensor, g: PoseGraph,
+               reduce=_no_reduce) -> torch.Tensor:
     """Sum of squared residuals (printed every 5 iterations by the
     reference, main.cpp:432-435)."""
-    return torch.sum(residuals(params, g) ** 2)
+    return reduce(torch.sum(residuals(params, g) ** 2))
 
 
 def _edge_jacobians(params: torch.Tensor, g: PoseGraph):
@@ -98,13 +109,13 @@ def _gradient_and_diag(n: int, g: PoseGraph, Jf, Jt, r):
     return grad, diag
 
 
-def _dense_step(params: torch.Tensor, g: PoseGraph, damping: float):
+def _dense_step(params: torch.Tensor, g: PoseGraph, damping: float, reduce):
     """One LM step through the dense normal equations and a Cholesky solve
     (small N)."""
     n = params.shape[0]
     r = residuals(params, g)
     Jf, Jt = _edge_jacobians(params, g)
-    grad, _ = _gradient_and_diag(n, g, Jf, Jt, r)
+    grad = reduce(_gradient_and_diag(n, g, Jf, Jt, r)[0])
     Hft = torch.einsum("eij,eik->ejk", Jf, Jt)
     # H as [N * N, 6, 6] blocks, block (a, b) at row a * n + b
     blocks = torch.zeros((n * n, 6, 6), dtype=params.dtype,
@@ -115,6 +126,7 @@ def _dense_step(params: torch.Tensor, g: PoseGraph, damping: float):
                       torch.einsum("eij,eik->ejk", Jt, Jt))
     blocks.index_add_(0, g.e_from * n + g.e_to, Hft)
     blocks.index_add_(0, g.e_to * n + g.e_from, Hft.transpose(1, 2))
+    blocks = reduce(blocks)
     Hm = blocks.reshape(n, n, 6, 6).permute(0, 2, 1, 3).reshape(n * 6, n * 6)
     bm = grad.reshape(n * 6)
     # LM damping lambda = damping * tr(H) / dim (reference main.cpp:411)
@@ -129,7 +141,8 @@ def _dense_step(params: torch.Tensor, g: PoseGraph, damping: float):
     return torch.cholesky_solve(-bm[:, None], L)[:, 0].reshape(n, 6)
 
 
-def _hvp(v: torch.Tensor, g: PoseGraph, Jf, Jt, lam) -> torch.Tensor:
+def _hvp(v: torch.Tensor, g: PoseGraph, Jf, Jt, lam,
+         reduce) -> torch.Tensor:
     """Matrix-free (H + lam I) v from the per-edge blocks: [N, 6] -> [N, 6];
     pose 0's row is the identity (gauge)."""
     y = (torch.einsum("eij,ej->ei", Jf, v[g.e_from])
@@ -137,19 +150,20 @@ def _hvp(v: torch.Tensor, g: PoseGraph, Jf, Jt, lam) -> torch.Tensor:
     out = torch.zeros_like(v)
     out.index_add_(0, g.e_from, torch.einsum("eij,ei->ej", Jf, y))
     out.index_add_(0, g.e_to, torch.einsum("eij,ei->ej", Jt, y))
-    out = out + lam * v
+    out = reduce(out) + lam * v
     first = (torch.arange(v.shape[0], device=v.device) == 0)[:, None]
     return torch.where(first, v, out)
 
 
 def _pcg_step(params: torch.Tensor, g: PoseGraph, damping: float,
-              cg_iterations: int):
+              cg_iterations: int, reduce):
     """One LM step by block-Jacobi preconditioned CG (large N; O(E)
     memory)."""
     n = params.shape[0]
     r = residuals(params, g)
     Jf, Jt = _edge_jacobians(params, g)
     grad, diag = _gradient_and_diag(n, g, Jf, Jt, r)
+    grad, diag = reduce(grad), reduce(diag)
     tr = torch.sum(torch.diagonal(diag, dim1=-2, dim2=-1))
     lam = _div(damping * tr, n * 6)
     eye6 = torch.eye(6, dtype=params.dtype, device=params.device)
@@ -163,11 +177,11 @@ def _pcg_step(params: torch.Tensor, g: PoseGraph, damping: float,
 
     tiny = torch.full((), 1e-20, dtype=params.dtype, device=params.device)
     x = torch.zeros_like(b)
-    res = b - _hvp(x, g, Jf, Jt, lam)
+    res = b - _hvp(x, g, Jf, Jt, lam, reduce)
     z = precond(res)
     p = z
     for _ in range(cg_iterations):
-        Ap = _hvp(p, g, Jf, Jt, lam)
+        Ap = _hvp(p, g, Jf, Jt, lam, reduce)
         rz = torch.sum(res * z)
         alpha = rz / torch.maximum(torch.sum(p * Ap), tiny)
         x = x + alpha * p
@@ -181,28 +195,31 @@ def _pcg_step(params: torch.Tensor, g: PoseGraph, damping: float,
 
 def optimize_pose_graph(params: torch.Tensor, g: PoseGraph,
                         cfg: PgoConfig = PgoConfig(),
-                        num_iterations: int | None = None):
+                        num_iterations: int | None = None,
+                        reduce=_no_reduce):
     """Gauss-Newton/LM PGO (reference ``optimizePoseGraph``
     main.cpp:282-445) of [N, 6] pose params (pose 0 fixed). Returns
     (optimized params, [iters + 1] costs). Convergence (max |delta| <
-    cfg.convergence_tol, main.cpp:424) freezes the updates."""
+    cfg.convergence_tol, main.cpp:424) freezes the updates. ``g`` may be a
+    shard of the edges when ``reduce`` sums each partial sum over the
+    shards (see the module's docstring)."""
     iters = cfg.max_iterations if num_iterations is None else num_iterations
     n = params.shape[0]
     use_dense = n <= cfg.dense_solver_max_poses
     first = (torch.arange(n, device=params.device) == 0)[:, None]
     done = torch.zeros((), dtype=torch.bool, device=params.device)
-    costs = [total_cost(params, g)]
+    costs = [total_cost(params, g, reduce)]
     p = params
     for _ in range(iters):
         if use_dense:
-            delta = _dense_step(p, g, cfg.damping)
+            delta = _dense_step(p, g, cfg.damping, reduce)
         else:
-            delta = _pcg_step(p, g, cfg.damping, cfg.cg_iterations)
+            delta = _pcg_step(p, g, cfg.damping, cfg.cg_iterations, reduce)
         delta = torch.where(first, 0.0, delta)
         max_update = torch.amax(torch.abs(delta))
         p = torch.where(done, p, p + delta)
         done = done | (max_update < cfg.convergence_tol)
-        costs.append(total_cost(p, g))
+        costs.append(total_cost(p, g, reduce))
     return p, torch.stack(costs)
 
 

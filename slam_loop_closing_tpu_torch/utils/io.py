@@ -6,8 +6,8 @@ visualization writers — numpy copies of the functions of
   (main.cpp:90-116) and ``frame_%04d.png`` naming; :func:`enumerate_frames`
   probes frame_0000.png, ... (main.cpp:1059-1067);
 * :func:`load_frame_gray`, :func:`load_frames_gray`: frames as float32 in
-  [0, 1], read with PIL (the JAX package's optional native parallel PNG
-  decoder is not part of the port);
+  [0, 1], read with PIL, or a PNG sequence with the native parallel decoder
+  of :mod:`.native` where it builds (as the JAX package reads them);
 * :func:`write_obj`, :func:`reconstruction_obj_path`: ``saveAsOBJ``
   (main.cpp:959-1036);
 * :func:`format_loop_closures`, :func:`write_loop_closures_txt`,
@@ -158,8 +158,19 @@ def load_frame_gray(path: str | Path, resize_hw: tuple[int, int] | None = None
 def load_frames_gray(paths: Sequence[str | Path], frame_skip: int = 1,
                      resize_hw: tuple[int, int] | None = None) -> np.ndarray:
     """Stack every ``frame_skip``-th frame into [B, H, W] float32 (the
-    README's frame_skip=3 stride, README.md:110), each read with PIL."""
+    README's frame_skip=3 stride, README.md:110). PNGs go through the native
+    parallel decoder (:mod:`.native`) when it builds; otherwise, or if it
+    cannot decode them, each frame is read with PIL."""
     sel = list(paths)[::frame_skip]
+    if sel and all(str(p).endswith(".png") for p in sel):
+        from slam_loop_closing_tpu_torch.utils import native
+
+        if native.available():
+            h, w = resize_hw if resize_hw else (None, None)
+            try:
+                return native.load_frames_gray_native(sel, h, w)
+            except OSError:
+                pass  # PIL reads the frames (or reports the bad one)
     return np.stack([load_frame_gray(p, resize_hw) for p in sel])
 
 

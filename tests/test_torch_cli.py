@@ -115,11 +115,15 @@ class TestLoopCli:
     @pytest.mark.parametrize("mode", ["--batched", "--incremental"])
     def test_loop_equals_jax(self, frames_dir, config_json, tmp_path, capsys,
                              monkeypatch, mode):
-        # both CLIs read the PNGs with PIL: the JAX package's optional
-        # native decoder scales by 1/255 where PIL's path divides by 255,
-        # 1 ulp apart on a fifth of the pixels, and the loop set moves
-        from slam_loop_closing_tpu.utils import native
-        monkeypatch.setattr(native, "available", lambda: False)
+        # both CLIs read the PNGs with PIL: the native decoder scales by
+        # 1/255 where PIL's path divides by 255, 1 ulp apart on a fifth of
+        # the pixels, and the loop set moves; the JAX package's loader may
+        # have latched a failed load in this process (ROADMAP F10), the
+        # port's does not, so the two would not read alike
+        from slam_loop_closing_tpu.utils import native as jnative
+        from slam_loop_closing_tpu_torch.utils import native as tnative
+        monkeypatch.setattr(jnative, "available", lambda: False)
+        monkeypatch.setattr(tnative, "available", lambda: False)
         argv = ["loop", "--frames", str(frames_dir), mode, "--config",
                 config_json, "--max-frames", "32"]
         assert jcli.main(argv + ["--output", str(tmp_path / "jax")]) == 0

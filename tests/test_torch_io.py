@@ -9,6 +9,7 @@ import pytest
 from slam_loop_closing_tpu.utils import io as jio
 from slam_loop_closing_tpu.utils import synth_video as jsynth
 from slam_loop_closing_tpu_torch.utils import io as tio
+from slam_loop_closing_tpu_torch.utils import native as tnative
 from slam_loop_closing_tpu_torch.utils import synth_video as tsynth
 
 
@@ -52,7 +53,10 @@ class TestLoopTxt:
 
 
 class TestFrames:
-    def test_write_enumerate_load_equal_jax(self, tmp_path):
+    def test_write_enumerate_load_equal_jax(self, tmp_path, monkeypatch):
+        # the PIL path (the native decoder's own file holds it to PIL and
+        # to the JAX package's decoder)
+        monkeypatch.setattr(tnative, "available", lambda: False)
         frames = tsynth.orbit_sequence(num_frames=5, h=32, w=48, num_points=30)
         d = tsynth.write_frames(frames, tmp_path / "seq")
         ref_dir = jsynth.write_frames(frames, tmp_path / "ref")

@@ -362,6 +362,11 @@ def test_port_imports_no_jax():
             "slam_loop_closing_tpu_torch.utils.kitti, "
             "slam_loop_closing_tpu_torch.utils.synth_video, "
             "slam_loop_closing_tpu_torch.models.calibration, "
+            "slam_loop_closing_tpu_torch.utils.native, "
+            "slam_loop_closing_tpu_torch.parallel.mesh, "
+            "slam_loop_closing_tpu_torch.parallel.launch, "
+            "slam_loop_closing_tpu_torch.parallel.sharded, "
+            "slam_loop_closing_tpu_torch.parallel.dryrun, "
             "slam_loop_closing_tpu_torch.cli; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('slam_loop_closing_tpu.')]; "
