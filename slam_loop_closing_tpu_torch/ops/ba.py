@@ -5,15 +5,20 @@ Port of :mod:`slam_loop_closing_tpu.ops.ba` (reference ``refineCameraPoseGN``
 main.cpp:632-743, ``refinePointGN`` main.cpp:757-858,
 ``computeReprojectionError`` main.cpp:871-896,
 ``alternatingBundleAdjustment`` main.cpp:905-943). Each pass is one vmapped
-forward-mode Jacobian over all observations (``torch.func``), an
-``index_add_`` assembling per-camera 6x6 (or per-point 3x3) normal
-equations, and one batched solve: the 3x3 closed form of
-:func:`..epipolar._solve3x3`, the 6x6 through ``torch.linalg.solve_ex`` (no
-info readback). Iteration counts are fixed and the LM acceptance is a
-per-camera / per-point select, so nothing is read back.
+forward-mode Jacobian over all observations (``torch.func``), a segment
+sum assembling per-camera 6x6 (or per-point 3x3) normal equations, and one
+batched solve: the 3x3 closed form of :func:`..epipolar._solve3x3`, the 6x6
+through ``torch.linalg.solve_ex`` (no info readback). Iteration counts are
+fixed and the LM acceptance is a per-camera / per-point select, so nothing
+is read back.
 
-On the card the scatter-adds are float atomics: their sum order, and so the
-last bits of the result, vary from run to run (ROADMAP R10).
+Every float sum over observations is :func:`..cuda_kernels.segment_sum`
+(kernel N on the card) over a plan of the camera or point index built once
+per :func:`_refine` call: a camera's (point's) valid observations are added
+in ascending observation order from zero, the order of a sequential
+``index_add_`` on the CPU, so the result has the same bits at every run on
+either device. Invalid observations, whose terms are zeros, join no sum.
+The integer observation counts stay ``index_add_`` (exact in any order).
 
 ``reduce`` (default the identity) is applied to every sum over observations — the
 per-camera and per-point counts, errors and normal equations, and the mean
@@ -29,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from slam_loop_closing_tpu_torch.config import BaConfig
-from slam_loop_closing_tpu_torch.ops import epipolar, lie
+from slam_loop_closing_tpu_torch.ops import cuda_kernels, epipolar, lie
 
 
 class Observations(NamedTuple):
@@ -106,11 +111,10 @@ def _solve_damped(H: torch.Tensor, g: torch.Tensor,
     return -torch.linalg.solve_ex(Hd, g[..., None])[0][..., 0]
 
 
-def _scatter_sum(n: int, index: torch.Tensor, values: torch.Tensor,
-                 reduce):
-    out = torch.zeros((n, *values.shape[1:]), dtype=values.dtype,
-                      device=values.device)
-    out.index_add_(0, index.long(), values)
+def _count(n: int, index: torch.Tensor, valid: torch.Tensor, reduce):
+    """[n] valid observations of each camera (point)."""
+    out = torch.zeros(n, dtype=torch.int32, device=valid.device)
+    out.index_add_(0, index.long(), valid.to(torch.int32))
     return reduce(out)
 
 
@@ -121,24 +125,28 @@ def _refine(K, cam_params, points, obs: Observations, argnum: int,
     kept only where that camera's (point's) total squared error does not
     grow and stays finite (points behind a camera give exploding 1/z
     Jacobians that otherwise diverge to NaN)."""
-    group = obs.cam if argnum == 1 else obs.point
     x0 = cam_params if argnum == 1 else points
-    n = x0.shape[0]
+    # an invalid observation adds exact zeros: it joins no segment (the
+    # padding of a bucketed map would otherwise make one camera's and one
+    # point's segment as long as the padding)
+    group = obs.cam if argnum == 1 else obs.point
+    plan = cuda_kernels.segment_plan(torch.where(obs.valid, group.long(), -1),
+                                     x0.shape[0])
+
+    def scatter(values):
+        return reduce(cuda_kernels.segment_sum(values, plan))
 
     def args(x):
         return (x, points) if argnum == 1 else (cam_params, x)
 
     def errs(x):
-        return _scatter_sum(n, group,
-                            reprojection_errors(K, *args(x), obs) ** 2,
-                            reduce)
+        return scatter(reprojection_errors(K, *args(x), obs) ** 2)
 
     x, err_x = x0, errs(x0)
     for _ in range(iterations):
         r, J = _per_obs_jacobians(K, *args(x), obs, argnum)
-        H = _scatter_sum(n, group, torch.einsum("oik,oil->okl", J, J),
-                         reduce)
-        g = _scatter_sum(n, group, torch.einsum("oik,oi->ok", J, r), reduce)
+        H = scatter(torch.einsum("oik,oil->okl", J, J))
+        g = scatter(torch.einsum("oik,oi->ok", J, r))
         delta = torch.where(movable[:, None], _solve_damped(H, g, damping),
                             0.0)
         cand = x + delta
@@ -159,8 +167,7 @@ def refine_cameras(K: torch.Tensor, cam_params: torch.Tensor,
     ``refineCameraPoseGN`` main.cpp:632-743). Cameras with fewer than
     ``min_observations`` valid observations stay (main.cpp:648);
     ``fixed_mask`` freezes more (camera 0 during BA)."""
-    counts = _scatter_sum(cam_params.shape[0], obs.cam,
-                          obs.valid.to(torch.int32), reduce)
+    counts = _count(cam_params.shape[0], obs.cam, obs.valid, reduce)
     movable = counts >= min_observations
     if fixed_mask is not None:
         movable = movable & ~fixed_mask
@@ -176,8 +183,7 @@ def refine_points(K: torch.Tensor, cam_params: torch.Tensor,
                   reduce=_no_reduce) -> torch.Tensor:
     """Structure-only GN for all points at once (reference
     ``refinePointGN`` main.cpp:757-858)."""
-    counts = _scatter_sum(points.shape[0], obs.point,
-                          obs.valid.to(torch.int32), reduce)
+    counts = _count(points.shape[0], obs.point, obs.valid, reduce)
     movable = counts >= min_observations
     if point_valid is not None:
         movable = movable & point_valid

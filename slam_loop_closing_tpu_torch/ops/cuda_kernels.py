@@ -28,12 +28,18 @@ l2_knn2                csrc/l2_knn2.cu               ``_l2_knn2_kernel``
 gauss_stack_resp       csrc/gauss_stack_resp.cu      ``_gauss_stack_resp_kernel``
                                                      and ``_gauss_stack_kernel``
 pyramid_level          csrc/pyramid_level.cu         none: XLA's resize matmuls
+resize_f32             csrc/pyramid_level.cu         none: XLA's resize matmuls
 orient_moments         csrc/orient_moments.cu        none: XLA's moment sums
+segment_sum            csrc/segment_sum.cu           none: XLA's scatter-adds
 =====================  ============================  ===========================
 
-``pyramid_level`` (J) and ``orient_moments`` (M) replace work that the JAX
-package leaves to XLA and the port first ran as cuBLAS products: they sum in
-a fixed order, so the front-end's bits do not depend on its batch size.
+``pyramid_level`` (J), its float32 mode ``resize_f32`` (the SIFT octave
+halving) and ``orient_moments`` (M) replace work that the JAX package leaves
+to XLA and the port first ran as cuBLAS products: they sum in a fixed order,
+so the front-end's bits do not depend on its batch size. ``segment_sum``
+(N) replaces the float atomics of CUDA's ``index_add_`` in the normal
+equations of BA and PGO: its sums run in a fixed order, so the backend
+gives the same bits at every run.
 
 ``band_count_tiles``, ``pair_counts`` and ``hamming_d1`` share one inner loop,
 ``csrc/hamming_mma.cuh``: the tensor cores' one-bit and-popc product on the
@@ -46,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -62,7 +69,7 @@ LAUNCHES = {"fast_score_nms_blur": 0, "extract_patches": 0,
             "band_count_tiles": 0, "pair_counts": 0, "hamming_nn": 0,
             "hamming_knn2": 0, "motion_support": 0, "l2_knn2": 0,
             "gauss_stack_resp": 0, "hamming_d1": 0, "pyramid_level": 0,
-            "orient_moments": 0}
+            "resize_f32": 0, "orient_moments": 0, "segment_sum": 0}
 
 
 def reset_launch_counts() -> None:
@@ -882,11 +889,13 @@ def gauss_stack_resp(imgs: torch.Tensor, sigmas, num_scales: int,
 
 
 # --------------------------------------------------------------------------
-# J: one ORB pyramid level in a fixed tap order
+# J: a banded resize in a fixed tap order (an ORB level; its float32 mode,
+# the SIFT octave halving)
 # --------------------------------------------------------------------------
 
-_PYR_TILE_H, _PYR_TILE_W = 16, 64   # output tile of a block of kernel J
-_PYR_SMEM = 48 * 1024               # kernel J's shared memory, at most
+_PYR_LEVEL_TILE = (32, 64)    # output tile of a block of kernel J (bf16)
+_PYR_HALF_TILE = (16, 64)     # the same in J's float32 mode
+_PYR_SMEM = 200 * 1024        # kernel J's shared memory, at most
 
 
 def pyramid_level_plain(x: torch.Tensor, out_h: int, out_w: int):
@@ -897,50 +906,86 @@ def pyramid_level_plain(x: torch.Tensor, out_h: int, out_w: int):
     return level, level.to(torch.float32)
 
 
+def resize_f32_plain(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """``[B, out_h, out_w]`` float32 resize of ``[B, H, W]`` float32 frames
+    by :func:`..image.resize_banded` at float32 (the SIFT octave
+    halving)."""
+    return image_ops.resize_banded(x, out_h, out_w, torch.float32)
+
+
 @functools.lru_cache(maxsize=64)
-def _pyramid_span(in_size: int, out_size: int, tile: int) -> int:
+def _pyramid_span(in_size: int, out_size: int, tile: int,
+                  dtype: torch.dtype) -> int:
     """The most input indices that the outputs of one tile of ``tile``
     consecutive outputs read along an axis resized from ``in_size`` to
-    ``out_size`` (kernel J's first pass holds them in shared memory)."""
-    start, band = image_ops.resize_taps(in_size, out_size)
+    ``out_size`` (kernel J holds a tile's whole input footprint in shared
+    memory)."""
+    start, band = image_ops.resize_taps(in_size, out_size, dtype)
     first = np.arange(0, out_size, tile)
     last = np.minimum(first + tile, out_size) - 1
     return int((start[last] + band.shape[1] - start[first]).max())
 
 
+def _resize_args(x: torch.Tensor, out_h: int, out_w: int,
+                 dtype: torch.dtype, tile: tuple[int, int]) -> tuple:
+    """Kernel J's arguments after the pointers of the frames and levels:
+    the tap tables of ``dtype`` (kept on the device), the sizes, the pass
+    order and the footprint's spans of a ``tile`` (checked against the
+    shared memory a block may use)."""
+    b, h, w = x.shape
+    _require(b <= 65535, "at most 65535 frames per launch")
+    rs, rw = image_ops.device_taps(h, out_h, x.device, dtype)
+    cs, cw = image_ops.device_taps(w, out_w, x.device, dtype)
+    rows_first = not h > w
+    th, tw = tile
+    span_r = _pyramid_span(h, out_h, th, dtype)
+    span_c = _pyramid_span(w, out_w, tw, dtype)
+    tr, tc = rw.shape[1], cw.shape[1]
+    words = (th * tr + tw * tc + th + tw + span_r * span_c
+             + (th * span_c if rows_first else span_r * tw))
+    _require(4 * words <= _PYR_SMEM,
+             "a tile of this resize reads too many inputs")
+    return (rs.data_ptr(), rw.data_ptr(), tr, cs.data_ptr(), cw.data_ptr(),
+            tc, b, h, w, out_h, out_w, int(rows_first), span_r, span_c)
+
+
 def pyramid_level(x: torch.Tensor, out_h: int, out_w: int):
     """:func:`pyramid_level_plain`; on a CUDA tensor one launch of kernel J
-    (a 16 x 64 output tile a block, the first pass's bfloat16 intermediate
-    in shared memory, every tap in ascending input index with no FMA),
-    which writes both the bfloat16 and the float32 level. Bitwise equal to
-    the plain version; a float32 input is rounded to bfloat16 on load."""
+    (a 32 x 64 output tile a block, its input footprint and the first
+    pass's bfloat16 intermediate in shared memory, every tap in ascending
+    input index with no FMA), which writes both the bfloat16 and the
+    float32 level. Bitwise equal to the plain version; a float32 input is
+    rounded to bfloat16 on load."""
     _require(x.dim() == 3 and x.dtype in (torch.float32, torch.bfloat16),
              "x must be [B, H, W] float32 or bfloat16")
     if not _on_cuda(x):
         return pyramid_level_plain(x, out_h, out_w)
-    b, h, w = x.shape
-    _require(b <= 65535, "at most 65535 frames per launch")
     x = x.contiguous()
-    rs, rw = image_ops.device_taps(h, out_h, x.device)
-    cs, cw = image_ops.device_taps(w, out_w, x.device)
-    rows_first = not h > w
-    if rows_first:
-        span = _pyramid_span(w, out_w, _PYR_TILE_W)
-        smem = 4 * span * _PYR_TILE_H
-    else:
-        span = _pyramid_span(h, out_h, _PYR_TILE_H)
-        smem = 4 * span * _PYR_TILE_W
-    _require(smem <= _PYR_SMEM, "a tile of this resize reads too many inputs")
-    out_b = torch.empty((b, out_h, out_w), dtype=torch.bfloat16,
+    args = _resize_args(x, out_h, out_w, torch.bfloat16, _PYR_LEVEL_TILE)
+    out_b = torch.empty((x.shape[0], out_h, out_w), dtype=torch.bfloat16,
                         device=x.device)
-    out_f = torch.empty((b, out_h, out_w), dtype=torch.float32,
+    out_f = torch.empty((x.shape[0], out_h, out_w), dtype=torch.float32,
                         device=x.device)
     _launch("pyramid_level", x.device, x.data_ptr(),
             int(x.dtype == torch.bfloat16), out_b.data_ptr(),
-            out_f.data_ptr(), rs.data_ptr(), rw.data_ptr(), rw.shape[1],
-            cs.data_ptr(), cw.data_ptr(), cw.shape[1], b, h, w, out_h, out_w,
-            int(rows_first), span)
+            out_f.data_ptr(), *args)
     return out_b, out_f
+
+
+def resize_f32(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """:func:`resize_f32_plain`; on a CUDA tensor one launch of kernel J in
+    its float32 mode (16 x 64 output tiles, nothing rounded but each
+    product and add). Bitwise equal to the plain version."""
+    _require(x.dim() == 3 and x.dtype == torch.float32,
+             "x must be [B, H, W] float32")
+    if not _on_cuda(x):
+        return resize_f32_plain(x, out_h, out_w)
+    x = x.contiguous()
+    args = _resize_args(x, out_h, out_w, torch.float32, _PYR_HALF_TILE)
+    out = torch.empty((x.shape[0], out_h, out_w), dtype=torch.float32,
+                      device=x.device)
+    _launch("resize_f32", x.device, x.data_ptr(), out.data_ptr(), *args)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1009,3 +1054,80 @@ def orient_moments(patches: torch.Tensor, valid: torch.Tensor,
             valid.data_ptr(), weights.data_ptr(), angle.data_ptr(),
             patches.shape[0])
     return angle
+
+
+# --------------------------------------------------------------------------
+# N: segment sums in a fixed order (BA's and PGO's normal equations)
+# --------------------------------------------------------------------------
+
+class SegmentPlan(NamedTuple):
+    """Rows grouped by the segment an index sends them to: ``order`` [E]
+    int32, a stable argsort of the index (a segment's rows in ascending
+    row order), and ``offsets`` [n + 1] int32, segment ``i``'s rows being
+    ``order[offsets[i]:offsets[i + 1]]``. Index values outside [0, n)
+    belong to no segment."""
+
+    order: torch.Tensor
+    offsets: torch.Tensor
+
+
+def segment_plan(index: torch.Tensor, n: int) -> SegmentPlan:
+    """The :class:`SegmentPlan` of ``index`` [E] into ``n`` segments: one
+    stable sort and one search, no host sync. Built once per problem and
+    used by every :func:`segment_sum` over that index."""
+    _require(index.dim() == 1, "index must be [E]")
+    _require(index.shape[0] < 2 ** 31 and n < 2 ** 31,
+             "at most 2^31 - 1 rows and segments")
+    idx = index.long()
+    order = torch.argsort(idx, stable=True)
+    bounds = torch.arange(n + 1, device=index.device)
+    offsets = torch.searchsorted(idx[order], bounds)
+    return SegmentPlan(order.to(torch.int32), offsets.to(torch.int32))
+
+
+def segment_sum_plain(values: torch.Tensor,
+                      plan: SegmentPlan) -> torch.Tensor:
+    """``[n, ...]`` sums of the rows of ``values`` [E, ...] float32 by
+    segment, in kernel N's order: each segment's rows in ascending
+    ``order`` position, added one by one from zero (an empty segment gives
+    0). The rows are taken in plan order and summed on the CPU by
+    ``index_add_``, whose loop over them runs in order; the sums come back
+    on ``values``' device."""
+    e = values.shape[0]
+    n = plan.offsets.shape[0] - 1
+    d = int(np.prod(values.shape[1:], dtype=np.int64))
+    offsets = plan.offsets.cpu().long()
+    rows = values.reshape(e, d)[
+        plan.order[int(offsets[0]):int(offsets[-1])].long()].cpu()
+    seg = torch.repeat_interleave(torch.arange(n), offsets.diff())
+    out = torch.zeros((n, d), dtype=values.dtype)
+    out.index_add_(0, seg, rows)
+    return out.to(values.device).reshape(n, *values.shape[1:])
+
+
+def segment_sum(values: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
+    """:func:`segment_sum_plain`; on CUDA tensors one launch of kernel N (a
+    warp a segment, each lane a component's chain of adds: no atomics, no
+    FMA). Bitwise equal to the plain version."""
+    _require(values.dim() >= 1 and values.dtype == torch.float32,
+             "values must be [E, ...] float32")
+    _require(plan.order.shape == values.shape[:1]
+             and plan.order.dtype == torch.int32
+             and plan.offsets.dim() == 1
+             and plan.offsets.dtype == torch.int32,
+             "the plan must be of an index over the rows of values")
+    if not _on_cuda(values, plan.order, plan.offsets):
+        return segment_sum_plain(values, plan)
+    e = values.shape[0]
+    n = plan.offsets.shape[0] - 1
+    d = int(np.prod(values.shape[1:], dtype=np.int64))
+    _require(1 <= d <= 64, "a row holds 1 to 64 floats")
+    # converted copies stay bound until the launch returns (see hamming_nn)
+    rows = values.reshape(e, d).contiguous()
+    order = plan.order.contiguous()
+    offsets = plan.offsets.contiguous()
+    out = torch.empty((n, *values.shape[1:]), dtype=torch.float32,
+                      device=values.device)
+    _launch("segment_sum", values.device, rows.data_ptr(), order.data_ptr(),
+            offsets.data_ptr(), out.data_ptr(), n, d)
+    return out

@@ -216,9 +216,12 @@ def triangulate_linear(R1: torch.Tensor, t1: torch.Tensor, R2: torch.Tensor,
     return -_solve3x3(H, g)
 
 
-def _solve3x3(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Closed-form batched 3x3 solve (adjugate), elementwise only. H must
-    be invertible (the caller's Tikhonov epsilon guarantees it)."""
+def _solve3x3(H: torch.Tensor, g: torch.Tensor,
+              tiny: float = 1e-30) -> torch.Tensor:
+    """Closed-form batched 3x3 solve (adjugate), elementwise only, so the
+    same bits on every device. A determinant below ``tiny`` in magnitude is
+    taken as ``tiny`` (the caller's Tikhonov epsilon keeps H invertible);
+    with ``tiny=0`` a singular H gives inf or nan, as an LU solve does."""
     a, b, c = H[..., 0, 0], H[..., 0, 1], H[..., 0, 2]
     d, e, f = H[..., 1, 0], H[..., 1, 1], H[..., 1, 2]
     p, q, r = H[..., 2, 0], H[..., 2, 1], H[..., 2, 2]
@@ -232,7 +235,7 @@ def _solve3x3(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     A21 = b * p - a * q
     A22 = a * e - b * d
     det = a * A00 + b * A10 + c * A20
-    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-30, 1e-30, det)
+    inv_det = 1.0 / torch.where(torch.abs(det) < tiny, tiny, det)
     x0 = (A00 * g[..., 0] + A01 * g[..., 1] + A02 * g[..., 2]) * inv_det
     x1 = (A10 * g[..., 0] + A11 * g[..., 1] + A12 * g[..., 2]) * inv_det
     x2 = (A20 * g[..., 0] + A21 * g[..., 1] + A22 * g[..., 2]) * inv_det

@@ -177,21 +177,24 @@ MAX_TAPS = 8   # taps an output may have in :func:`resize_taps`
 
 
 @functools.cache
-def resize_taps(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
-    """The banded form of :func:`resize_weights` rounded to bfloat16: for
-    each output index ``o``, ``start[o]`` and the ``T`` weights of inputs
-    ``start[o] .. start[o] + T - 1`` (``[out_size]`` int32 and
-    ``[out_size, T]`` float32). ``T`` is the most nonzero weights an output
-    has (3 at the ORB pyramid's scale 1.2, 4 at a halving); a window runs
-    from the output's first nonzero weight, moved back to end inside the
-    input where it would not, so every nonzero weight lies in it and the
-    rest are zeros. An axis that keeps its size gets one tap of 1.0, which
-    leaves a bfloat16 input as it is. Raises above :data:`MAX_TAPS`."""
+def resize_taps(in_size: int, out_size: int,
+                dtype: torch.dtype = torch.bfloat16
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """The banded form of :func:`resize_weights` rounded to ``dtype``
+    (bfloat16: the ORB pyramid's; float32: the weights as they are, the
+    SIFT octave's): for each output index ``o``, ``start[o]`` and the ``T``
+    weights of inputs ``start[o] .. start[o] + T - 1`` (``[out_size]``
+    int32 and ``[out_size, T]`` float32). ``T`` is the most nonzero weights
+    an output has (3 at the ORB pyramid's scale 1.2, 4 at a halving); a
+    window runs from the output's first nonzero weight, moved back to end
+    inside the input where it would not, so every nonzero weight lies in it
+    and the rest are zeros. An axis that keeps its size gets one tap of
+    1.0, which leaves its input as it is. Raises above :data:`MAX_TAPS`."""
     if in_size == out_size:
         return (np.arange(out_size, dtype=np.int32),
                 np.ones((out_size, 1), np.float32))
-    w = torch.from_numpy(resize_weights(in_size, out_size)).to(
-        torch.bfloat16).to(torch.float32).numpy()
+    w = torch.from_numpy(resize_weights(in_size, out_size)).to(dtype).to(
+        torch.float32).numpy()
     nz = w != 0
     taps = max(1, int(nz.sum(0).max()))
     if taps > MAX_TAPS:
@@ -203,19 +206,21 @@ def resize_taps(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=64)
-def device_taps(in_size: int, out_size: int, device: torch.device):
+def device_taps(in_size: int, out_size: int, device: torch.device,
+                dtype: torch.dtype = torch.bfloat16):
     """:func:`resize_taps` on ``device``, kept (never written to): a copy
     from host memory per call would be a host sync per pyramid level."""
-    start, band = resize_taps(in_size, out_size)
+    start, band = resize_taps(in_size, out_size, dtype)
     return (torch.from_numpy(start).to(device),
             torch.from_numpy(band).to(device))
 
 
-def _banded_pass(x: torch.Tensor, dim: int, out_size: int) -> torch.Tensor:
+def _banded_pass(x: torch.Tensor, dim: int, out_size: int,
+                 dtype: torch.dtype) -> torch.Tensor:
     """One axis of :func:`resize_banded`: ``acc = w_0 * x[start]``, then
-    ``acc = acc + w_k * x[start + k]`` for k = 1 .. T-1 in float32, rounded
-    to bfloat16."""
-    start, band = device_taps(x.shape[dim], out_size, x.device)
+    ``acc = acc + w_k * x[start + k]`` for k = 1 .. T-1 in float32 (each
+    product and add rounded on its own), rounded to ``dtype``."""
+    start, band = device_taps(x.shape[dim], out_size, x.device, dtype)
     shape = [1] * x.dim()
     shape[dim] = out_size
     acc = None
@@ -223,24 +228,30 @@ def _banded_pass(x: torch.Tensor, dim: int, out_size: int) -> torch.Tensor:
         term = (x.index_select(dim, start + k).to(torch.float32)
                 * band[:, k].reshape(shape))
         acc = term if acc is None else acc + term
-    return acc.to(torch.bfloat16)
+    return acc.to(dtype)
 
 
-def resize_banded(imgs: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """:func:`resize_bilinear` of ``[..., H, W]`` bfloat16 frames in a fixed
-    order: each axis walks only its nonzero taps (:func:`resize_taps`), in
-    ascending input index, in float32; rows first unless ``h > w``; each
-    pass rounded to bfloat16. Every product of two bfloat16 values is exact
-    in float32, so only the order of the adds could move a bit, and it is
-    fixed here: bitwise equal to the dense products on the CPU fixtures,
-    and the plain version of the pyramid kernel (J)."""
+def resize_banded(imgs: torch.Tensor, out_h: int, out_w: int,
+                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """:func:`resize_bilinear` of ``[..., H, W]`` frames at ``dtype`` in a
+    fixed order: each axis walks only its nonzero taps
+    (:func:`resize_taps`), in ascending input index, in float32; rows first
+    unless ``h > w``; the input and each pass rounded to ``dtype``.
+
+    At bfloat16 every product of two bfloat16 values is exact in float32,
+    so only the order of the adds could move a bit, and it is fixed here:
+    bitwise equal to the dense products on the CPU fixtures, and the plain
+    version of the pyramid kernel (J). At float32 (the SIFT octave
+    halving, the plain version of J's float32 mode) the products round
+    too, so it is within a few ulp of the dense float32 products, whose
+    order (and FMA) is the library's own."""
     h, w = imgs.shape[-2:]
     dims = [(-2, out_h), (-1, out_w)]
     if h > w:
         dims.reverse()
-    out = imgs.to(torch.bfloat16)
+    out = imgs.to(dtype)
     for dim, n in dims:
-        out = _banded_pass(out, dim, n)
+        out = _banded_pass(out, dim, n, dtype)
     return out
 
 

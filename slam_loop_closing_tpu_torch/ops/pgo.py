@@ -7,7 +7,7 @@ main.cpp:282-445, ``simplePoseCorrection`` main.cpp:451-492):
 * per-edge Jacobian blocks from one ``torch.func.vmap`` of
   ``torch.func.jacfwd`` of :func:`edge_residual` (the JAX package's vmapped
   ``jax.jacfwd``);
-* normal equations assembled by ``index_add_`` of [6, 6] blocks;
+* normal equations assembled by segment sums of [6, 6] blocks;
 * up to ``cfg.dense_solver_max_poses`` poses a dense Cholesky solve
   (``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve``: the plain
   ``cholesky`` reads cuSOLVER's info back to the host on every call), above
@@ -19,8 +19,14 @@ the gauge: its update is projected to zero. The iteration count is fixed;
 convergence (max |delta| < tol) freezes the parameters on the device, so the
 loop reads nothing back.
 
-On the card the scatter-adds are float atomics: their sum order, and so the
-last bits of the result, vary from run to run (ROADMAP R10).
+Every float sum over edges into poses (or pose pairs) is
+:func:`..cuda_kernels.segment_sum` (kernel N on the card) over a plan built
+once per :func:`optimize_pose_graph` call. Where the JAX package adds the
+from-edges' terms and then the to-edges', the port sums the two lists
+concatenated, so a pose's terms come in that order: from-edges, then
+to-edges, each in ascending edge order (a sequential ``index_add_`` on the
+CPU). The result has the same bits at every run on either device. A
+masked edge, whose terms are zeros, joins no sum.
 
 ``reduce`` (default the identity) is applied to every sum over edges — the cost, the
 gradient, the Hessian's blocks and each CG iteration's Hessian-vector
@@ -36,7 +42,7 @@ from typing import NamedTuple
 import torch
 
 from slam_loop_closing_tpu_torch.config import PgoConfig
-from slam_loop_closing_tpu_torch.ops import lie
+from slam_loop_closing_tpu_torch.ops import cuda_kernels, lie
 
 
 class PoseGraph(NamedTuple):
@@ -98,35 +104,61 @@ def _edge_jacobians(params: torch.Tensor, g: PoseGraph):
             torch.where(m, Jt, 0.0).to(params.dtype))
 
 
-def _gradient_and_diag(n: int, g: PoseGraph, Jf, Jt, r):
-    """g_i = sum_e J_e,i^T r_e and the [N, 6, 6] diagonal blocks of H."""
-    grad = torch.zeros((n, 6), dtype=r.dtype, device=r.device)
-    grad.index_add_(0, g.e_from, torch.einsum("eij,ei->ej", Jf, r))
-    grad.index_add_(0, g.e_to, torch.einsum("eij,ei->ej", Jt, r))
-    diag = torch.zeros((n, 6, 6), dtype=r.dtype, device=r.device)
-    diag.index_add_(0, g.e_from, torch.einsum("eij,eik->ejk", Jf, Jf))
-    diag.index_add_(0, g.e_to, torch.einsum("eij,eik->ejk", Jt, Jt))
-    return grad, diag
+class _Plans(NamedTuple):
+    """The segment plans of one graph: ``edges`` sends the from-edges' and
+    then the to-edges' rows to their poses; ``blocks`` (dense solver only)
+    sends the ff, tt, ft and tf blocks' rows to block (a, b) at row
+    ``a * n + b`` of the [N * N, 6, 6] Hessian."""
+
+    edges: cuda_kernels.SegmentPlan
+    blocks: cuda_kernels.SegmentPlan | None
 
 
-def _dense_step(params: torch.Tensor, g: PoseGraph, damping: float, reduce):
+def _plans(g: PoseGraph, n: int, dense: bool) -> _Plans:
+    # a masked edge adds exact zeros: both its ends become -1, so it joins
+    # no segment (each of its block rows a * n + b is negative too)
+    ef = torch.where(g.mask, g.e_from.long(), -1)
+    et = torch.where(g.mask, g.e_to.long(), -1)
+    blocks = None
+    if dense:
+        blocks = cuda_kernels.segment_plan(
+            torch.cat([ef * n + ef, et * n + et, ef * n + et, et * n + ef]),
+            n * n)
+    return _Plans(cuda_kernels.segment_plan(torch.cat([ef, et]), n), blocks)
+
+
+def _edge_sum(plan: cuda_kernels.SegmentPlan, from_terms: torch.Tensor,
+              to_terms: torch.Tensor) -> torch.Tensor:
+    """Per pose, the sum of its from-edges' terms, then its to-edges'."""
+    return cuda_kernels.segment_sum(torch.cat([from_terms, to_terms]), plan)
+
+
+def _gradient(plans: _Plans, Jf, Jt, r):
+    """g_i = sum_e J_e,i^T r_e, [N, 6]."""
+    return _edge_sum(plans.edges, torch.einsum("eij,ei->ej", Jf, r),
+                     torch.einsum("eij,ei->ej", Jt, r))
+
+
+def _diag(plans: _Plans, Jf, Jt):
+    """The [N, 6, 6] diagonal blocks of H."""
+    return _edge_sum(plans.edges, torch.einsum("eij,eik->ejk", Jf, Jf),
+                     torch.einsum("eij,eik->ejk", Jt, Jt))
+
+
+def _dense_step(params: torch.Tensor, g: PoseGraph, plans: _Plans,
+                damping: float, reduce):
     """One LM step through the dense normal equations and a Cholesky solve
     (small N)."""
     n = params.shape[0]
     r = residuals(params, g)
     Jf, Jt = _edge_jacobians(params, g)
-    grad = reduce(_gradient_and_diag(n, g, Jf, Jt, r)[0])
+    grad = reduce(_gradient(plans, Jf, Jt, r))
     Hft = torch.einsum("eij,eik->ejk", Jf, Jt)
     # H as [N * N, 6, 6] blocks, block (a, b) at row a * n + b
-    blocks = torch.zeros((n * n, 6, 6), dtype=params.dtype,
-                         device=params.device)
-    blocks.index_add_(0, g.e_from * n + g.e_from,
-                      torch.einsum("eij,eik->ejk", Jf, Jf))
-    blocks.index_add_(0, g.e_to * n + g.e_to,
-                      torch.einsum("eij,eik->ejk", Jt, Jt))
-    blocks.index_add_(0, g.e_from * n + g.e_to, Hft)
-    blocks.index_add_(0, g.e_to * n + g.e_from, Hft.transpose(1, 2))
-    blocks = reduce(blocks)
+    blocks = reduce(cuda_kernels.segment_sum(
+        torch.cat([torch.einsum("eij,eik->ejk", Jf, Jf),
+                   torch.einsum("eij,eik->ejk", Jt, Jt), Hft,
+                   Hft.transpose(1, 2)]), plans.blocks))
     Hm = blocks.reshape(n, n, 6, 6).permute(0, 2, 1, 3).reshape(n * 6, n * 6)
     bm = grad.reshape(n * 6)
     # LM damping lambda = damping * tr(H) / dim (reference main.cpp:411)
@@ -141,29 +173,27 @@ def _dense_step(params: torch.Tensor, g: PoseGraph, damping: float, reduce):
     return torch.cholesky_solve(-bm[:, None], L)[:, 0].reshape(n, 6)
 
 
-def _hvp(v: torch.Tensor, g: PoseGraph, Jf, Jt, lam,
+def _hvp(v: torch.Tensor, g: PoseGraph, plans: _Plans, Jf, Jt, lam,
          reduce) -> torch.Tensor:
     """Matrix-free (H + lam I) v from the per-edge blocks: [N, 6] -> [N, 6];
     pose 0's row is the identity (gauge)."""
     y = (torch.einsum("eij,ej->ei", Jf, v[g.e_from])
          + torch.einsum("eij,ej->ei", Jt, v[g.e_to]))
-    out = torch.zeros_like(v)
-    out.index_add_(0, g.e_from, torch.einsum("eij,ei->ej", Jf, y))
-    out.index_add_(0, g.e_to, torch.einsum("eij,ei->ej", Jt, y))
-    out = reduce(out) + lam * v
+    out = reduce(_edge_sum(plans.edges, torch.einsum("eij,ei->ej", Jf, y),
+                           torch.einsum("eij,ei->ej", Jt, y))) + lam * v
     first = (torch.arange(v.shape[0], device=v.device) == 0)[:, None]
     return torch.where(first, v, out)
 
 
-def _pcg_step(params: torch.Tensor, g: PoseGraph, damping: float,
-              cg_iterations: int, reduce):
+def _pcg_step(params: torch.Tensor, g: PoseGraph, plans: _Plans,
+              damping: float, cg_iterations: int, reduce):
     """One LM step by block-Jacobi preconditioned CG (large N; O(E)
     memory)."""
     n = params.shape[0]
     r = residuals(params, g)
     Jf, Jt = _edge_jacobians(params, g)
-    grad, diag = _gradient_and_diag(n, g, Jf, Jt, r)
-    grad, diag = reduce(grad), reduce(diag)
+    grad = reduce(_gradient(plans, Jf, Jt, r))
+    diag = reduce(_diag(plans, Jf, Jt))
     tr = torch.sum(torch.diagonal(diag, dim1=-2, dim2=-1))
     lam = _div(damping * tr, n * 6)
     eye6 = torch.eye(6, dtype=params.dtype, device=params.device)
@@ -177,11 +207,11 @@ def _pcg_step(params: torch.Tensor, g: PoseGraph, damping: float,
 
     tiny = torch.full((), 1e-20, dtype=params.dtype, device=params.device)
     x = torch.zeros_like(b)
-    res = b - _hvp(x, g, Jf, Jt, lam, reduce)
+    res = b - _hvp(x, g, plans, Jf, Jt, lam, reduce)
     z = precond(res)
     p = z
     for _ in range(cg_iterations):
-        Ap = _hvp(p, g, Jf, Jt, lam, reduce)
+        Ap = _hvp(p, g, plans, Jf, Jt, lam, reduce)
         rz = torch.sum(res * z)
         alpha = rz / torch.maximum(torch.sum(p * Ap), tiny)
         x = x + alpha * p
@@ -206,15 +236,17 @@ def optimize_pose_graph(params: torch.Tensor, g: PoseGraph,
     iters = cfg.max_iterations if num_iterations is None else num_iterations
     n = params.shape[0]
     use_dense = n <= cfg.dense_solver_max_poses
+    plans = _plans(g, n, use_dense)
     first = (torch.arange(n, device=params.device) == 0)[:, None]
     done = torch.zeros((), dtype=torch.bool, device=params.device)
     costs = [total_cost(params, g, reduce)]
     p = params
     for _ in range(iters):
         if use_dense:
-            delta = _dense_step(p, g, cfg.damping, reduce)
+            delta = _dense_step(p, g, plans, cfg.damping, reduce)
         else:
-            delta = _pcg_step(p, g, cfg.damping, cfg.cg_iterations, reduce)
+            delta = _pcg_step(p, g, plans, cfg.damping, cfg.cg_iterations,
+                              reduce)
         delta = torch.where(first, 0.0, delta)
         max_update = torch.amax(torch.abs(delta))
         p = torch.where(done, p, p + delta)

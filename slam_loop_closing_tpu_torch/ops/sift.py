@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from slam_loop_closing_tpu_torch.config import SiftConfig
+from slam_loop_closing_tpu_torch.ops import epipolar
 from slam_loop_closing_tpu_torch.ops import fast as fast_ops
 from slam_loop_closing_tpu_torch.ops import image as image_ops
 
@@ -257,9 +258,10 @@ def _detect_octave(imgs: torch.Tensor, octave: int, budget: int,
                        torch.stack([dxs, dys, dss], -1)], -2)
           + 1e-8 * torch.eye(3, device=dev))                 # [B, K, 3, 3]
     gvec = torch.stack([gx, gy, gs], -1)
-    # solve_ex: no host sync, no raise on a singular Hessian (its inf/nan
-    # offsets become 0 below, as in the JAX package)
-    offs = -torch.linalg.solve_ex(hm, gvec[..., None])[0][..., 0]
+    # the closed-form solve (elementwise, no host sync): the same offsets
+    # on every device, where a batched LU rounds by its library; a singular
+    # Hessian's inf/nan offsets become 0 below, as in the JAX package
+    offs = -epipolar._solve3x3(hm, gvec, tiny=0.0)
     offs = torch.where(torch.isfinite(offs), offs, 0.0)
     offs = torch.clamp(offs, -0.5, 0.5)                      # dx, dy, ds
     x = x + torch.where(valid, offs[..., 0], 0.0)
@@ -383,7 +385,11 @@ def _level_budgets(total: int, num_octaves: int) -> list[int]:
 def _detect_and_describe_frames(imgs: torch.Tensor,
                                 cfg: SiftConfig) -> SiftFeatures:
     """Full SIFT on ``[B, H, W]`` float32 frames in one pass per octave
-    (``cfg.num_features`` slots per frame)."""
+    (``cfg.num_features`` slots per frame). Each octave is the one before
+    halved by the banded float32 resize (``image.resize_banded``), the
+    JAX package's ``jax.image.resize`` in a fixed order of operations."""
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels
+
     budgets = _level_budgets(cfg.num_features, cfg.num_octaves)
     octave_imgs = imgs
     b = imgs.shape[0]
@@ -406,7 +412,10 @@ def _detect_and_describe_frames(imgs: torch.Tensor,
                 return torch.zeros((b, k) + shape, dtype=dtype, device=dev)
 
             parts.append((z(2), z(), z(), z(), z(dtype=torch.bool), z(128)))
-        octave_imgs = image_ops.resize_bilinear(octave_imgs, h // 2, w // 2)
+        if o + 1 < cfg.num_octaves:
+            # kernel J's float32 mode (its plain version on a CPU tensor):
+            # a fixed order, so an octave's bits do not depend on the chunk
+            octave_imgs = cuda_kernels.resize_f32(octave_imgs, h // 2, w // 2)
     xy, sc, th, rv, va, de = (torch.cat(p, dim=1) for p in zip(*parts))
     return SiftFeatures(xy=xy, scale=sc, angle=th, response=rv, valid=va,
                         descriptors=de)

@@ -130,12 +130,17 @@ def load() -> ctypes.CDLL:
         "slam_l2_knn2": (p, p, p, p, p, p, p, p, p, p, i, i, i, i, p),
         # x, x is bf16, out bf16, out f32, row starts, row weights, row taps,
         # column starts, column weights, column taps, b, h, w, oh, ow,
-        # rows first, span, stream
+        # rows first, row span, column span, stream
         "slam_pyramid_level": (p, i, p, p, p, p, i, p, p, i, i, i, i, i, i, i,
-                               i, p),
+                               i, i, p),
+        # x, out, then as slam_pyramid_level from the row starts
+        "slam_resize_f32": (p, p, p, p, i, p, p, i, i, i, i, i, i, i, i, i,
+                            p),
         # patches [k, 32, 32], valid [k], weights [1024, 2], angle [k], k,
         # stream
         "slam_orient_moments": (p, p, p, p, i, p),
+        # values [e, d], order [e], offsets [n + 1], out [n, d], n, d, stream
+        "slam_segment_sum": (p, p, p, p, i, i, p),
         # img, gauss, resp, host taps [levels, 19], host radii [levels],
         # levels, b, h, w, s (0: gauss only), thr, edge_r, (edge_r + 1)^2,
         # border, stream

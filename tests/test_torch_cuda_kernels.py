@@ -13,7 +13,10 @@ octave kernel (H) in both modes, the pyramid level (J) and the
 orientation moments (M), and the ORB front-end across batch sizes (F9),
 and the squared-L2 top-2 kernel (G) on integer-valued descriptors (on real
 ones its dot products sum in another order than cuBLAS's: distances within
-1e-5).
+1e-5). So are the pyramid kernel's float32 mode (the SIFT octave halving)
+and the SIFT front-end across chunk sizes (R17), and the fixed-order
+segment sum (N), with which BA and PGO give the same bits at every run
+(F12).
 """
 
 import dataclasses
@@ -31,7 +34,8 @@ from slam_loop_closing_tpu_torch.models.loop_closing import LoopClosingSystem
 from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
 from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
 from slam_loop_closing_tpu_torch.ops import image as image_ops
-from slam_loop_closing_tpu_torch.ops import matching, orb, sift
+from slam_loop_closing_tpu_torch.config import BaConfig, PgoConfig, SiftConfig
+from slam_loop_closing_tpu_torch.ops import ba, lie, matching, orb, pgo, sift
 from slam_loop_closing_tpu_torch.utils.synth_video import orbit_sequence
 
 torch.set_num_threads(1)
@@ -712,11 +716,14 @@ def _block_frames(rng, b, h, w):
 
 @pytest.mark.parametrize("b,h,w", [(8, 1080, 1920), (1, 1080, 1920),
                                    (2, 540, 960), (2, 160, 120),
-                                   (3, 37, 61), (2, 8, 40), (2, 40, 9)])
+                                   (3, 37, 61), (2, 8, 40), (2, 40, 9),
+                                   (2, 1079, 1917), (1, 1920, 1080),
+                                   (2, 300, 2000)])
 def test_pyramid_level_kernel_bitwise(dev, b, h, w):
     """Kernel J against its plain version down four pyramid levels at scale
     1.2 (1080p as 8 frames and as the live path's one, the 540x960 levels,
-    a portrait frame (columns first), odd sizes, the max(8, ...) floor that
+    portrait frames (columns first) up to 1080p, odd sizes, a footprint
+    wider than a tile's staging covers at once, the max(8, ...) floor that
     keeps an axis as it is): both outputs bitwise, the first level from
     float32 frames, the later ones from the bfloat16 level before; one
     launch count a level."""
@@ -809,3 +816,165 @@ def test_hamming_nn_kernel_split_sweep(dev, monkeypatch):
                 got = ck.hamming_nn(pq, vq, pt, v)
                 assert all(torch.equal(g, r) for g, r in zip(got, ref)), \
                     splits
+
+
+@pytest.mark.parametrize("b,h,w", [(8, 1080, 1920), (1, 1080, 1920),
+                                   (2, 61, 77), (2, 90, 50), (1, 1920, 1080),
+                                   (3, 135, 241)])
+def test_resize_f32_kernel_bitwise(dev, b, h, w):
+    """Kernel J's float32 mode against its plain version down the SIFT
+    octaves (1080p -> 540 -> 270 -> 135 and on), odd and portrait sizes:
+    bitwise, one launch count a halving."""
+    rng = np.random.default_rng(h + w + b)
+    x = image_ops.ship_frames(_block_frames(rng, b, h, w), dev)
+    while min(x.shape[1:]) >= 16:
+        nh, nw = x.shape[1] // 2, x.shape[2] // 2
+        before = ck.LAUNCHES["resize_f32"]
+        got = ck.resize_f32(x, nh, nw)
+        assert ck.LAUNCHES["resize_f32"] == before + 1
+        assert got.dtype == torch.float32 and got.shape == (b, nh, nw)
+        assert torch.equal(got, ck.resize_f32_plain(x, nh, nw))
+        x = got
+
+
+def test_sift_front_end_batch_invariant_on_card(dev):
+    """R17's gate on the SIFT path: SIFT-4000 (4 octaves, flat selection)
+    on 8 1080p frames in chunks of 1, 4 and 8: keypoints, scales, angles,
+    responses, validity and descriptors bitwise equal."""
+    rng = np.random.default_rng(8)
+    imgs = image_ops.ship_frames(_block_frames(rng, 8, 1080, 1920), dev)
+    runs = [sift.detect_and_describe_batch(imgs, SiftConfig(
+        num_features=4000, batch_chunk=c)) for c in (1, 4, 8)]
+    assert int(runs[0].valid.sum()) > 8 * 1000
+    for c, other in zip((4, 8), runs[1:]):
+        for name, a, b in zip(runs[0]._fields, runs[0], other):
+            assert torch.equal(a, b), f"{name} differs at chunk {c}"
+
+
+SEGMENT_WIDTHS = {1: (), 3: (3,), 6: (6,), 9: (3, 3), 36: (6, 6)}
+
+
+def _segment_case(rng, case: str):
+    """(index, segments) of one segment-sum case (tests/
+    test_torch_segment_sum.py's, and the card's sizes)."""
+    n, e = 40, 2400
+    if case == "random":
+        return rng.integers(0, n, e), n
+    if case == "empty segments":
+        return rng.choice(np.flatnonzero(np.arange(n) % 3), e), n
+    if case == "one long segment":
+        idx = rng.integers(0, n, e)
+        idx[rng.random(e) < 0.8] = n // 2
+        return idx, n
+    if case == "permuted":
+        return rng.permutation(np.repeat(np.arange(n), e // n)), n
+    if case == "camera of 5,000 rows":     # segment 95, rows scattered
+        idx = rng.integers(0, 95, 20000)
+        idx[rng.permutation(20000)[:5000]] = 95
+        return idx, 96
+    if case == "10,000 segments of degree 2":
+        return rng.permutation(np.repeat(np.arange(10000), 2)), 10000
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["random", "empty segments",
+                                  "one long segment", "permuted",
+                                  "camera of 5,000 rows",
+                                  "10,000 segments of degree 2"])
+@pytest.mark.parametrize("d", sorted(SEGMENT_WIDTHS))
+def test_segment_sum_kernel_bitwise(dev, d, case):
+    """Kernel N against its plain version (and the plan built on the
+    card against the CPU's): every float's bits, on values whose
+    magnitudes span ~1e-6 .. 1e6, so that any other order of adds would
+    show; one launch count a call."""
+    rng = np.random.default_rng(d)
+    idx, n = _segment_case(rng, case)
+    mag = np.exp(rng.normal(size=(idx.shape[0], 1)) * 5.0)
+    vals = (rng.normal(size=(idx.shape[0], d)) * mag).astype(np.float32)
+    vals = torch.from_numpy(vals).reshape(-1, *SEGMENT_WIDTHS[d])
+    plan = ck.segment_plan(torch.from_numpy(idx).to(dev), n)
+    cpu = ck.segment_plan(torch.from_numpy(idx), n)
+    assert torch.equal(plan.order.cpu(), cpu.order)
+    assert torch.equal(plan.offsets.cpu(), cpu.offsets)
+    before = ck.LAUNCHES["segment_sum"]
+    got = ck.segment_sum(vals.to(dev), plan)
+    assert ck.LAUNCHES["segment_sum"] == before + 1
+    ref = ck.segment_sum_plain(vals.to(dev), plan)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(got.cpu().view(torch.int32),
+                       ck.segment_sum(vals, cpu).view(torch.int32))
+
+
+def _pose_graph(dev, n: int, loops: int, seed: int):
+    """A noisy circle of ``n`` poses with sequential edges and ``loops``
+    loop edges of weight 10 across half the circle (BASELINE config 5's
+    construction)."""
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    params = np.concatenate([np.zeros((n, 2)), ang[:, None],
+                             50 * np.stack([np.cos(ang), np.sin(ang),
+                                            np.zeros(n)], -1)], -1)
+    clean = torch.tensor(params, dtype=torch.float32)
+    params[1:] += rng.normal(0, 0.01, params[1:].shape)
+    lid = rng.integers(n // 2, n, loops)
+    ef = np.concatenate([np.arange(n - 1), lid - n // 2])
+    et = np.concatenate([np.arange(1, n), lid])
+    R, t = lie.params_to_pose(clean)
+    R_rel, t_rel = lie.relative(R[ef], t[ef], R[et], t[et])
+    g = pgo.PoseGraph(
+        e_from=torch.tensor(ef, device=dev), e_to=torch.tensor(et, device=dev),
+        R_rel=R_rel.to(dev), t_rel=t_rel.to(dev),
+        weight=torch.tensor(np.where(et == ef + 1, 1.0, 10.0),
+                            dtype=torch.float32, device=dev),
+        mask=torch.ones(len(ef), dtype=torch.bool, device=dev))
+    return torch.tensor(params, dtype=torch.float32, device=dev), g
+
+
+@pytest.mark.parametrize("n,solver", [(60, "dense"), (3000, "pcg")])
+def test_pgo_reproducible_on_card(dev, n, solver):
+    """F12's gate for PGO: two runs of optimize_pose_graph on the card with
+    no deterministic mode give the same bits (poses and costs)."""
+    assert not torch.are_deterministic_algorithms_enabled()
+    params, g = _pose_graph(dev, n, n // 100 + 2, seed=n)
+    cfg = PgoConfig(dense_solver_max_poses=1500 if solver == "dense" else 0,
+                    cg_iterations=50)
+    runs = [pgo.optimize_pose_graph(params, g, cfg, 6) for _ in range(2)]
+    assert float(runs[0][1][-1]) < 0.5 * float(runs[0][1][0])
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_ba_reproducible_on_card(dev):
+    """F12's gate for BA: two runs of alternating_ba on the card with no
+    deterministic mode, 96 cameras of about 1,000 observations each and
+    30,000 points, give the same bits."""
+    assert not torch.are_deterministic_algorithms_enabled()
+    rng = np.random.default_rng(96)
+    ncam, npts, per = 96, 30000, 1000
+    K = torch.tensor([[768.0, 0, 480], [0, 768, 270], [0, 0, 1]], device=dev)
+    truth = np.zeros((ncam, 6), np.float32)
+    truth[:, 1] = np.linspace(-0.6, 0.6, ncam)
+    truth[:, 3] = np.linspace(-3, 3, ncam)
+    X = np.stack([rng.uniform(-6, 6, npts), rng.uniform(-3, 3, npts),
+                  rng.uniform(8, 16, npts)], -1).astype(np.float32)
+    cam = np.repeat(np.arange(ncam), per)
+    pid = rng.integers(0, npts, cam.shape[0])
+    perm = rng.permutation(cam.shape[0])
+    cam, pid = cam[perm], pid[perm]
+    R, t = lie.params_to_pose(torch.from_numpy(truth))
+    Xc = (R[cam] @ torch.from_numpy(X[pid])[..., None])[..., 0] + t[cam]
+    uv = (Xc[:, :2] / Xc[:, 2:]) * 768.0 + torch.tensor([480.0, 270.0])
+    uv = uv + torch.from_numpy(rng.normal(0, 0.5, uv.shape)).float()
+    obs = ba.Observations(
+        torch.from_numpy(cam.astype(np.int32)).to(dev),
+        torch.from_numpy(pid.astype(np.int32)).to(dev), uv.to(dev),
+        torch.from_numpy(rng.random(cam.shape[0]) > 0.05).to(dev))
+    noisy = truth + rng.normal(0, 0.01, truth.shape).astype(np.float32)
+    noisy[0] = truth[0]
+    Xn = X + rng.normal(0, 0.05, X.shape).astype(np.float32)
+    args = (K, torch.from_numpy(noisy).to(dev), torch.from_numpy(Xn).to(dev),
+            obs, None, BaConfig(), 3)
+    runs = [ba.alternating_ba(*args) for _ in range(2)]
+    assert float(runs[0][2][-1]) < 1.0
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

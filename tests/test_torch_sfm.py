@@ -16,7 +16,8 @@ camera within 2e-3 px for the undistortion and 5e-5 relative for a
 projection (a division by the depth); triangulated points within 1e-4
 relative (the normal equations square the condition number), the gates
 and counters exact; PGO within 1e-4; BA within 1e-4 (cameras) and 1e-3 (points: the
-port sums with ``index_add_``, XLA in its own order); a keyframe step
+port sums each camera's and point's terms in observation order, XLA in its
+own order); a keyframe step
 started from a converted JAX state (JAX's fused step program) within 2e-5
 in the pose and 5e-3 in the new points (1.9e-3 measured, on points up to
 15 units away), its discrete outcome exact; end to end the keyframes, map counts, loop pair and match /
