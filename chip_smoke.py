@@ -172,7 +172,10 @@ each printed with its result and seconds on its own line:
     PCG) bitwise equal to ``optimize_pose_graph``, as are a second run,
     every timed call and a run in deterministic mode; then kernel N
     against its plain version at the BA and PGO indices of those two
-    paths, every row width the paths sum, timed beside ``index_add_``;
+    paths, in every call the paths make there (one sum, or several in
+    one launch; PGO's two-source sums), each timed by CUDA events and the
+    profiler beside ``index_add_``, with the wrapper's host microseconds
+    a call (timing printed, not gated);
     ``banded_loop_counts`` on
     phase 14's store at gap 30 (the ring's raw matrix zero exactly on the
     tiles the JAX rule skips and the pair route's elsewhere, the band
@@ -188,7 +191,10 @@ Each main path, the sharded ones included, runs with the launch counts
 set to 0 just before it and read just after; process_video, process_stream (8 frames), both SfM runs, config
 2 (front-end + dense) and the multi-video path also run once under the
 profiler, which gives each kernel's summed device time over that path (the
-line before the kernels' JSON). Any failure raises (exit code 1). The line
+line before the kernels' JSON); kernel N's launches and device ms on each
+path that runs it are printed once every path has run (``[kernel N by
+path]``, and ``by_path`` in its record). Any failure raises (exit code 1).
+The line
 before the last is the kernels' JSON record: each kernel's launches on the
 main paths, its error against the plain version, its CUDA-event time and
 the plain version's, and its bound (the larger of the bytes it must move
@@ -224,6 +230,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import multiprocessing
 import os
 import re
@@ -3101,7 +3108,7 @@ def run_sharded_pgo(mesh, device_ms: dict, sharded_rec: dict,
     t0 = time.perf_counter()
     params, g = pgo_config5_graph(mesh.device)
     n_shapes["PGO config 5"] = (torch.cat([g.e_from, g.e_to]),
-                                params.shape[0])
+                                params.shape[0], g.e_from.shape[0])
     cfg = PgoConfig(dense_solver_max_poses=0, cg_iterations=PGO_CG)
     ref, costs = pgo.optimize_pose_graph(params, g, cfg, PGO_ITERATIONS)
     (got, _), launches = counted(ck, lambda: sharded.pgo_sharded(
@@ -3145,6 +3152,31 @@ def run_sharded_pgo(mesh, device_ms: dict, sharded_rec: dict,
     return launches
 
 
+def backend_indices(pipe, state, loop) -> dict:
+    """Kernel N's indices at a Version-B run's backend, after its BA
+    (name -> (index, segments, rows of the first source or None)): BA's
+    camera and point index of the active observations (an invalid
+    observation joins no segment) and the dense PGO's block index of the
+    keyframe graph."""
+    import torch
+
+    obs = pipe._active_obs(state)
+    dev = obs.cam.device
+    k = int(state.kf_count)
+    pb = pipe._bucket(int(state.point_count) + 1, state.points.shape[0])
+    ef = torch.cat([torch.arange(k - 1, device=dev),
+                    torch.tensor([loop.past_kf], device=dev)])
+    et = torch.cat([torch.arange(1, k, device=dev),
+                    torch.tensor([loop.curr_kf], device=dev)])
+    return {"BA cameras": (torch.where(obs.valid, obs.cam.long(), -1),
+                           state.poses.shape[0], None),
+            "BA points": (torch.where(obs.valid, obs.point.long(), -1), pb,
+                          None),
+            "PGO keyframes, dense blocks": (
+                torch.cat([ef * k + ef, et * k + et, ef * k + et,
+                           et * k + ef]), k * k, None)}
+
+
 def run_sharded_sfm(mesh, frames: np.ndarray, device_ms: dict,
                     sharded_rec: dict, n_shapes: dict) -> dict:
     """``sfm_reconstruct_sharded`` (with ``ba_sharded`` and ``pgo_sharded``
@@ -3179,20 +3211,7 @@ def run_sharded_sfm(mesh, frames: np.ndarray, device_ms: dict,
     e2 = float(errs2[-1])
     torch.cuda.synchronize()
     t_twin = time.perf_counter() - t0
-    obs = pipe._active_obs(s1)
-    k = int(s1.kf_count)
-    pb = pipe._bucket(int(s1.point_count) + 1, s1.points.shape[0])
-    # the path's plans: an invalid observation joins no segment
-    n_shapes["BA cameras"] = (torch.where(obs.valid, obs.cam.long(), -1),
-                              s1.poses.shape[0])
-    n_shapes["BA points"] = (torch.where(obs.valid, obs.point.long(), -1),
-                             pb)
-    ef = torch.cat([torch.arange(k - 1, device=mesh.device),
-                    torch.tensor([loop1.past_kf], device=mesh.device)])
-    et = torch.cat([torch.arange(1, k, device=mesh.device),
-                    torch.tensor([loop1.curr_kf], device=mesh.device)])
-    n_shapes["PGO keyframes, dense blocks"] = (
-        torch.cat([ef * k + ef, et * k + et, ef * k + et, et * k + ef]), k * k)
+    n_shapes.update(backend_indices(pipe, s1, loop1))
     t1 = time.perf_counter()
     (s2, m), launches = counted(
         ck, lambda: sharded.sfm_reconstruct_sharded(
@@ -3251,24 +3270,60 @@ def run_sharded_sfm(mesh, frames: np.ndarray, device_ms: dict,
     return launches
 
 
-N_SHAPE_WIDTHS = {"BA cameras": ((6, 6), (6,), ()),
-                  "BA points": ((3, 3), (3,), ()),
-                  "PGO keyframes, dense blocks": ((6, 6),),
-                  "PGO config 5": ((6,), (6, 6))}
+# kernel N's calls at each index, as the path makes them: the row shapes
+# of the sums of one launch (BA: H alone, the record; H and g, a
+# Gauss-Newton step's launch; the squared errors. PGO at config 5: the CG
+# product, the record; the gradient and the diagonal, a PCG step's first
+# launch; both with the from- and to-edges' terms as two sources)
+N_SHAPE_CALLS = {"BA cameras": (((6, 6),), ((6, 6), (6,)), ((),)),
+                 "BA points": (((3, 3),), ((3, 3), (3,)), ((),)),
+                 "PGO keyframes, dense blocks": (((6, 6),),),
+                 "PGO config 5": (((6,),), ((6,), (6, 6)))}
+N_RECORD = "BA cameras, 36"   # the longest segments
+N_REPS, N_ROUNDS = 50, 7    # kernel N's and index_add_'s timing, in turns
+
+
+def alternating_ms(fns, reps: int, rounds: int) -> list:
+    """Each of ``fns``' :func:`cuda_ms` of ``reps`` calls, the functions
+    in turns, ``rounds`` times: (median, least, most) for each. A
+    host-paced call's time moves between rounds about as much as between
+    two forms, so forms are compared in turns."""
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for t, fn in zip(times, fns):
+            t.append(cuda_ms(fn, reps))
+    return [(float(np.median(t)), min(t), max(t)) for t in times]
+
+
+def host_us(fn, reps: int) -> float:
+    """Microseconds of the host's own time a call of ``fn()``: ``reps``
+    calls enqueued back to back (the card keeps up), before the one
+    synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def check_segment_sum(n_shapes: dict, dev) -> dict:
     """Kernel N against its plain version at the indices the Version-B ORB
     run and BASELINE config 5 give it (``n_shapes``: name -> (index,
-    segments)), at every row width the path sums there (BA: the normal
-    matrices, the gradients, the squared errors; PGO: the Hessian blocks,
-    the gradient and the CG products), on random float32 rows: bitwise.
-    CUDA-event and profiler times of each, the plain version's, one
-    ``index_add_`` (float atomics: the call it replaced) and the bound:
-    each row read once with its order entry, the offsets, the sums written
-    once; an add a float on the FMA pipe. The record is the BA cameras'
-    6x6 normal matrices (the longest segments); ``shapes`` holds the
-    rest."""
+    segments, rows of the first source or None)), in every call the path
+    makes there (``N_SHAPE_CALLS``), on random float32 rows: bitwise. For
+    each call, CUDA-event times (the median of ``N_ROUNDS`` rounds, in
+    turns with ``index_add_``) and profiler times, the wrapper's host
+    microseconds a call, the plain version's time, ``index_add_`` of the
+    same rows (float atomics: the call it replaced; one a sum) and the
+    bound: each row read once with its order entry, the offsets, the sums
+    written once; an add a float on the FMA pipe. The record is the BA
+    cameras' 6x6 normal matrices (the longest segments); ``shapes`` holds
+    the rest."""
     import torch
 
     from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
@@ -3276,50 +3331,75 @@ def check_segment_sum(n_shapes: dict, dev) -> dict:
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(14)
     shapes, lines = {}, []
-    for name, (index, n) in n_shapes.items():
+    for name, (index, n, split) in n_shapes.items():
         plan = ck.segment_plan(index, n)
         e = index.shape[0]
-        longest = int((plan.offsets[1:] - plan.offsets[:-1]).max())
-        for width in N_SHAPE_WIDTHS[name]:
-            d = int(np.prod(width))
-            vals = torch.randn((e, *width), generator=gen, device=dev)
-            got = ck.segment_sum(vals, plan)
-            check_bitwise(f"kernel N at {name}, rows of {d}", [
-                got.view(torch.int32)], [ck.segment_sum_plain(
-                    vals, plan).view(torch.int32)])
-            # index_add_ of the rows in some segment (the rest add nothing)
-            keep = (index >= 0) & (index < n)
-            idx, kept = index[keep].long(), vals[keep]
+        lengths = plan.offsets[1:] - plan.offsets[:-1]
+        longest, n_long = int(lengths.max()), int(plan.long_count)
+        keep = (index >= 0) & (index < n)
+        idx = index[keep].long()
+        for widths in N_SHAPE_CALLS[name]:
+            vals = [torch.randn((e, *w), generator=gen, device=dev)
+                    for w in widths]
+            sums = [v if split is None else (v[:split], v[split:])
+                    for v in vals]
+            d = [math.prod(w) for w in widths]
+            key = f"{name}, {'+'.join(map(str, d))}"
+            got = ck.segment_sums(plan, *sums)
+            check_bitwise(f"kernel N at {key}",
+                          [g.view(torch.int32) for g in got],
+                          [ck.segment_sum_plain(v, plan).view(torch.int32)
+                           for v in vals])
+            kept = [v[keep] for v in vals]
+
+            def call():
+                return ck.segment_sums(plan, *sums)
 
             def library():
-                out = torch.zeros((n, *width), device=dev)
-                return out.index_add_(0, idx, kept)
+                return [torch.zeros((n, *v.shape[1:]), device=dev).index_add_(
+                    0, idx, v) for v in kept]
 
+            (ms, ms_lo, ms_hi), (lib, lib_lo, lib_hi) = alternating_ms(
+                (call, library), N_REPS, N_ROUNDS)
             rec = dict(
                 rows=e, segments=n, width=d, longest_segment=longest,
-                max_abs_err=0.0,
-                ms=cuda_ms(lambda: ck.segment_sum(vals, plan), 20),
-                device_ms=device_ms(lambda: ck.segment_sum(vals, plan), 20),
-                plain_ms=cuda_ms(lambda: ck.segment_sum_plain(vals, plan), 1),
-                **bound_pipes(4 * (e * d + e + n + 1 + n * d),
-                              {"ffma": e * d}))
-            rec["library_ms"] = cuda_ms(library, 20)
-            shapes[f"{name}, {d}"] = rec
-            lines.append(f"{name} ({e} rows, {n} segments, longest {longest},"
-                         f" width {d}): {rec['ms']:.4f} ms (device "
-                         f"{rec['device_ms']:.4f}), plain "
-                         f"{rec['plain_ms']:.2f}, index_add_ "
-                         f"{rec['library_ms']:.4f}, bound "
+                long_segments=n_long, max_abs_err=0.0, ms=ms,
+                ms_range=[ms_lo, ms_hi], device_ms=device_ms(call, 20),
+                host_us=host_us(call, 200),
+                plain_ms=cuda_ms(lambda: [ck.segment_sum_plain(v, plan)
+                                          for v in vals], 1),
+                **bound_pipes(4 * (e * sum(d) + e + n + 1 + n * sum(d)),
+                              {"ffma": e * sum(d)}))
+            rec["library_ms"], rec["library_ms_range"] = lib, [lib_lo,
+                                                                lib_hi]
+            shapes[key] = rec
+            lines.append(f"{key} ({e} rows, {n} segments, {n_long} long, "
+                         f"longest {longest}): {ms:.4f} ms ({ms_lo:.4f}-"
+                         f"{ms_hi:.4f}; device {rec['device_ms']:.4f}, host "
+                         f"{rec['host_us']:.1f} us), plain "
+                         f"{rec['plain_ms']:.2f}, index_add_ {lib:.4f} "
+                         f"({lib_lo:.4f}-{lib_hi:.4f}), bound "
                          f"{rec['bound_ms']:.5f}")
     phase("kernel N segment_sum", t0, "bitwise at every shape; "
           + "; ".join(lines))
-    main = dict(shapes.pop("BA cameras, 36"))
-    for key in ("rows", "segments", "width", "longest_segment"):
+    main = dict(shapes.pop(N_RECORD))
+    for key in ("rows", "segments", "width", "longest_segment",
+                "long_segments"):
         main.pop(key)
     main["library"] = ("index_add_ of the same rows (float atomics, the "
                        "call it replaced)")
     main["shapes"] = shapes
     return main
+
+
+def kernel_n_by_path(paths: dict, device_ms: dict) -> dict:
+    """Kernel N's launches (``paths``: path -> launch counts of its run)
+    and summed device ms (profiler) on each main path that runs it."""
+    by_path = {p: dict(launches=c["segment_sum"],
+                       device_ms=device_ms.get(p, {}).get("segment_sum"))
+               for p, c in paths.items() if c["segment_sum"]}
+    print(f"[kernel N by path] {json.dumps(by_path)}", flush=True)
+    return by_path
 
 
 def run_sharded_dryrun(mesh, sharded_rec: dict) -> None:
@@ -3593,6 +3673,11 @@ def main() -> int:
     ml_launches = run_multi_loop(dev)
     run_sharded_dryrun(mesh, sharded_rec)
     torch.distributed.destroy_process_group()
+    records["segment_sum"]["by_path"] = kernel_n_by_path({
+        f"SfMPipeline.run ORB-{SFM_FEATURES} grid 8": sfm_launches,
+        f"SfMPipeline.run SIFT-{SIFT_FEATURES}": sift_launches,
+        "sharded sfm_reconstruct_sharded": sfm_sh_launches,
+        "sharded pgo_sharded": pgo_launches}, device_ms)
 
     paths = (video_launches, stream_launches, sfm_launches, sift_launches,
              c2_launches, mv_launches, ml_launches, fe_launches,

@@ -12,13 +12,14 @@ through ``torch.linalg.solve_ex`` (no info readback). Iteration counts are
 fixed and the LM acceptance is a per-camera / per-point select, so nothing
 is read back.
 
-Every float sum over observations is :func:`..cuda_kernels.segment_sum`
-(kernel N on the card) over a plan of the camera or point index built once
-per :func:`_refine` call: a camera's (point's) valid observations are added
-in ascending observation order from zero, the order of a sequential
-``index_add_`` on the CPU, so the result has the same bits at every run on
-either device. Invalid observations, whose terms are zeros, join no sum.
-The integer observation counts stay ``index_add_`` (exact in any order).
+Every float sum over observations is :func:`..cuda_kernels.segment_sums`
+(kernel N on the card; a Gauss-Newton step's H and g in one launch) over a
+plan of the camera or point index built once per :func:`_refine` call: a
+camera's (point's) valid observations are added in ascending observation
+order from zero, the order of a sequential ``index_add_`` on the CPU, so
+the result has the same bits at every run on either device. Invalid
+observations, whose terms are zeros, join no sum. The integer observation
+counts stay ``index_add_`` (exact in any order).
 
 ``reduce`` (default the identity) is applied to every sum over observations — the
 per-camera and per-point counts, errors and normal equations, and the mean
@@ -133,20 +134,21 @@ def _refine(K, cam_params, points, obs: Observations, argnum: int,
     plan = cuda_kernels.segment_plan(torch.where(obs.valid, group.long(), -1),
                                      x0.shape[0])
 
-    def scatter(values):
-        return reduce(cuda_kernels.segment_sum(values, plan))
+    def scatter(*values):
+        return [reduce(s) for s in cuda_kernels.segment_sums(plan, *values)]
 
     def args(x):
         return (x, points) if argnum == 1 else (cam_params, x)
 
     def errs(x):
-        return scatter(reprojection_errors(K, *args(x), obs) ** 2)
+        return scatter(reprojection_errors(K, *args(x), obs) ** 2)[0]
 
     x, err_x = x0, errs(x0)
     for _ in range(iterations):
         r, J = _per_obs_jacobians(K, *args(x), obs, argnum)
-        H = scatter(torch.einsum("oik,oil->okl", J, J))
-        g = scatter(torch.einsum("oik,oi->ok", J, r))
+        # H and g in one launch
+        H, g = scatter(torch.einsum("oik,oil->okl", J, J),
+                       torch.einsum("oik,oi->ok", J, r))
         delta = torch.where(movable[:, None], _solve_damped(H, g, damping),
                             0.0)
         cand = x + delta

@@ -30,7 +30,8 @@ gauss_stack_resp       csrc/gauss_stack_resp.cu      ``_gauss_stack_resp_kernel`
 pyramid_level          csrc/pyramid_level.cu         none: XLA's resize matmuls
 resize_f32             csrc/pyramid_level.cu         none: XLA's resize matmuls
 orient_moments         csrc/orient_moments.cu        none: XLA's moment sums
-segment_sum            csrc/segment_sum.cu           none: XLA's scatter-adds
+segment_sums,          csrc/segment_sum.cu           none: XLA's scatter-adds
+segment_sum
 =====================  ============================  ===========================
 
 ``pyramid_level`` (J), its float32 mode ``resize_f32`` (the SIFT octave
@@ -52,6 +53,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+import struct
 from typing import NamedTuple
 
 import numpy as np
@@ -91,11 +94,19 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
 
 def _launch(name: str, device: torch.device, *args) -> None:
     """Launch ``slam_<name>`` on ``device``'s current stream and, for a
-    kernel of :data:`LAUNCHES`, count it."""
+    kernel of :data:`LAUNCHES`, count it. The device is made current only
+    when it is not already; the stream's handle is read without building a
+    ``torch.cuda.Stream`` (``probe_segment_forms.py`` times both)."""
     fn = getattr(cuda_build.load(), f"slam_{name}")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        stream = torch._C._cuda_getCurrentRawStream(index)
         cuda_build.check(fn(*args, stream), name)
+    else:
+        with torch.cuda.device(index):
+            stream = torch._C._cuda_getCurrentRawStream(index)
+            cuda_build.check(fn(*args, stream), name)
     if name in LAUNCHES:
         LAUNCHES[name] += 1
 
@@ -1060,29 +1071,61 @@ def orient_moments(patches: torch.Tensor, valid: torch.Tensor,
 # N: segment sums in a fixed order (BA's and PGO's normal equations)
 # --------------------------------------------------------------------------
 
+SHORT_ROWS = 8    # a segment of more rows takes kernel N's long form
+LONG_BLOCKS_PER_SM = 2   # blocks an SM at most that walk the long segments
+MAX_SUMS = 3     # sums a launch
+# kernel N's arguments for 0 to MAX_SUMS sums, packed as int64
+# (csrc/segment_sum.cu: the plan's 7, the count, then 5 a sum)
+SEGMENT_ARGS = [struct.Struct(f"<{8 + 5 * k}q") for k in range(MAX_SUMS + 1)]
+
+
 class SegmentPlan(NamedTuple):
     """Rows grouped by the segment an index sends them to: ``order`` [E]
     int32, a stable argsort of the index (a segment's rows in ascending
     row order), and ``offsets`` [n + 1] int32, segment ``i``'s rows being
     ``order[offsets[i]:offsets[i + 1]]``. Index values outside [0, n)
-    belong to no segment."""
+    belong to no segment. ``long_ids`` [n] int32 lists the segments of
+    more than ``short_rows`` rows first, ascending, ``long_count`` [] int32
+    of them: kernel N gives those to its first ``long_blocks`` blocks (0 on
+    the CPU) and the rest a thread a component."""
 
     order: torch.Tensor
     offsets: torch.Tensor
+    long_ids: torch.Tensor
+    long_count: torch.Tensor
+    short_rows: int
+    long_blocks: int
+
+    @property
+    def n(self) -> int:
+        """The number of segments."""
+        return self.offsets.shape[0] - 1
 
 
 def segment_plan(index: torch.Tensor, n: int) -> SegmentPlan:
-    """The :class:`SegmentPlan` of ``index`` [E] into ``n`` segments: one
-    stable sort and one search, no host sync. Built once per problem and
-    used by every :func:`segment_sum` over that index."""
+    """The :class:`SegmentPlan` of ``index`` [E] into ``n`` segments: two
+    stable sorts and a search, no host sync. Built once per problem and
+    used by every :func:`segment_sums` over that index. A segment of more
+    than :data:`SHORT_ROWS` rows takes the long form, which has at most
+    :data:`LONG_BLOCKS_PER_SM` blocks an SM (and no more than the segments
+    that could be long)."""
     _require(index.dim() == 1, "index must be [E]")
     _require(index.shape[0] < 2 ** 31 and n < 2 ** 31,
              "at most 2^31 - 1 rows and segments")
+    short_rows = SHORT_ROWS
     idx = index.long()
     order = torch.argsort(idx, stable=True)
     bounds = torch.arange(n + 1, device=index.device)
     offsets = torch.searchsorted(idx[order], bounds)
-    return SegmentPlan(order.to(torch.int32), offsets.to(torch.int32))
+    is_long = offsets.diff() > short_rows
+    long_ids = torch.argsort((~is_long).to(torch.uint8), stable=True)
+    long_blocks = 0
+    if index.is_cuda:
+        long_blocks = min(n, index.shape[0] // (short_rows + 1),
+                          LONG_BLOCKS_PER_SM * _sm_count(index.get_device()))
+    return SegmentPlan(order.to(torch.int32), offsets.to(torch.int32),
+                       long_ids.to(torch.int32),
+                       is_long.sum(dtype=torch.int32), short_rows, long_blocks)
 
 
 def segment_sum_plain(values: torch.Tensor,
@@ -1105,29 +1148,67 @@ def segment_sum_plain(values: torch.Tensor,
     return out.to(values.device).reshape(n, *values.shape[1:])
 
 
+def segment_sums_plain(plan: SegmentPlan, *sums) -> list:
+    """:func:`segment_sum_plain` of each sum: a tensor, or a pair of
+    tensors read as their concatenation along the rows."""
+    return [segment_sum_plain(torch.cat(s) if isinstance(s, tuple) else s,
+                              plan) for s in sums]
+
+
+def segment_sums(plan: SegmentPlan, *sums) -> list:
+    """:func:`segment_sums_plain`: up to three sums over one plan, each
+    ``[E, ...]`` float32 rows or a pair ``(first [E1, ...], second
+    [E - E1, ...])`` of one row shape, read as their concatenation (no
+    copy on the card); a list of ``[n, ...]`` sums. On CUDA tensors one
+    launch of kernel N for all of them: no atomics, no FMA, no chain split
+    over threads. Bitwise equal to the plain version. On the card the
+    wrapper checks only what the kernel needs: BA and PGO call it at every
+    step, and its host time sets the pace of a call."""
+    if not plan.order.is_cuda:
+        _require(1 <= len(sums) <= MAX_SUMS, "one to three sums a launch")
+        for s in sums:
+            parts = s if isinstance(s, tuple) else (s,)
+            _require(len(parts) in (1, 2) and all(
+                t.dim() >= 1 and t.dtype == torch.float32
+                and not t.is_cuda and t.shape[1:] == parts[0].shape[1:]
+                for t in parts)
+                and sum(t.shape[0] for t in parts) == plan.order.shape[0],
+                "a sum is [E, ...] float32 rows, or two parts of them")
+        return segment_sums_plain(plan, *sums)
+    e, index = plan.order.shape[0], plan.order.get_device()
+    _require(1 <= len(sums) <= MAX_SUMS, "one to three sums a launch")
+    args = [plan.order.data_ptr(), plan.offsets.data_ptr(),
+            plan.long_ids.data_ptr(), plan.long_count.data_ptr(), plan.n,
+            plan.short_rows, plan.long_blocks, len(sums)]
+    outs, keep = [], []
+    for s in sums:
+        if type(s) is tuple:
+            first, second = s[0].contiguous(), s[1].contiguous()
+            _require(second.dtype == torch.float32
+                     and second.get_device() == index
+                     and second.shape[1:] == first.shape[1:]
+                     and first.shape[0] + second.shape[0] == e,
+                     "the two parts of a sum: [E1, ...] and [E - E1, ...] "
+                     "float32 rows on the plan's device")
+        else:
+            first = second = s.contiguous()
+            _require(first.shape[0] == e, "a sum has a row a plan entry")
+        row = first.shape[1:]
+        d = math.prod(row)
+        _require(first.dtype == torch.float32 and first.get_device() == index
+                 and 1 <= d <= 64, "a sum's rows are 1 to 64 float32 on "
+                 "the plan's device")
+        out = first.new_empty(plan.n, *row)
+        # the converted copies stay bound until the launch returns
+        keep += (first, second)
+        outs.append(out)
+        args += (first.data_ptr(), second.data_ptr(), first.shape[0], d,
+                 out.data_ptr())
+    _launch("segment_sum", plan.order.device,
+            SEGMENT_ARGS[len(sums)].pack(*args))
+    return outs
+
+
 def segment_sum(values: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
-    """:func:`segment_sum_plain`; on CUDA tensors one launch of kernel N (a
-    warp a segment, each lane a component's chain of adds: no atomics, no
-    FMA). Bitwise equal to the plain version."""
-    _require(values.dim() >= 1 and values.dtype == torch.float32,
-             "values must be [E, ...] float32")
-    _require(plan.order.shape == values.shape[:1]
-             and plan.order.dtype == torch.int32
-             and plan.offsets.dim() == 1
-             and plan.offsets.dtype == torch.int32,
-             "the plan must be of an index over the rows of values")
-    if not _on_cuda(values, plan.order, plan.offsets):
-        return segment_sum_plain(values, plan)
-    e = values.shape[0]
-    n = plan.offsets.shape[0] - 1
-    d = int(np.prod(values.shape[1:], dtype=np.int64))
-    _require(1 <= d <= 64, "a row holds 1 to 64 floats")
-    # converted copies stay bound until the launch returns (see hamming_nn)
-    rows = values.reshape(e, d).contiguous()
-    order = plan.order.contiguous()
-    offsets = plan.offsets.contiguous()
-    out = torch.empty((n, *values.shape[1:]), dtype=torch.float32,
-                      device=values.device)
-    _launch("segment_sum", values.device, rows.data_ptr(), order.data_ptr(),
-            offsets.data_ptr(), out.data_ptr(), n, d)
-    return out
+    """:func:`segment_sum_plain`, through :func:`segment_sums`."""
+    return segment_sums(plan, values)[0]

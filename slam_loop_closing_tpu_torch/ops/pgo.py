@@ -20,12 +20,12 @@ convergence (max |delta| < tol) freezes the parameters on the device, so the
 loop reads nothing back.
 
 Every float sum over edges into poses (or pose pairs) is
-:func:`..cuda_kernels.segment_sum` (kernel N on the card) over a plan built
+:func:`..cuda_kernels.segment_sums` (kernel N on the card) over a plan built
 once per :func:`optimize_pose_graph` call. Where the JAX package adds the
-from-edges' terms and then the to-edges', the port sums the two lists
-concatenated, so a pose's terms come in that order: from-edges, then
-to-edges, each in ascending edge order (a sequential ``index_add_`` on the
-CPU). The result has the same bits at every run on either device. A
+from-edges' terms and then the to-edges', the port sums the two lists as
+one (the kernel reads both in place), so a pose's terms come in that
+order: from-edges, then to-edges, each in ascending edge order (a
+sequential ``index_add_`` on the CPU). The result has the same bits at every run on either device. A
 masked edge, whose terms are zeros, joins no sum.
 
 ``reduce`` (default the identity) is applied to every sum over edges — the cost, the
@@ -106,7 +106,9 @@ def _edge_jacobians(params: torch.Tensor, g: PoseGraph):
 
 class _Plans(NamedTuple):
     """The segment plans of one graph: ``edges`` sends the from-edges' and
-    then the to-edges' rows to their poses; ``blocks`` (dense solver only)
+    then the to-edges' rows to their poses (a sum over it is a pair, the
+    from-edges' terms and the to-edges', read as one list of rows);
+    ``blocks`` (dense solver only)
     sends the ff, tt, ft and tf blocks' rows to block (a, b) at row
     ``a * n + b`` of the [N * N, 6, 6] Hessian."""
 
@@ -127,22 +129,16 @@ def _plans(g: PoseGraph, n: int, dense: bool) -> _Plans:
     return _Plans(cuda_kernels.segment_plan(torch.cat([ef, et]), n), blocks)
 
 
-def _edge_sum(plan: cuda_kernels.SegmentPlan, from_terms: torch.Tensor,
-              to_terms: torch.Tensor) -> torch.Tensor:
-    """Per pose, the sum of its from-edges' terms, then its to-edges'."""
-    return cuda_kernels.segment_sum(torch.cat([from_terms, to_terms]), plan)
+def _gradient_terms(Jf, Jt, r):
+    """The edges' terms of g_i = sum_e J_e,i^T r_e, [N, 6]."""
+    return (torch.einsum("eij,ei->ej", Jf, r),
+            torch.einsum("eij,ei->ej", Jt, r))
 
 
-def _gradient(plans: _Plans, Jf, Jt, r):
-    """g_i = sum_e J_e,i^T r_e, [N, 6]."""
-    return _edge_sum(plans.edges, torch.einsum("eij,ei->ej", Jf, r),
-                     torch.einsum("eij,ei->ej", Jt, r))
-
-
-def _diag(plans: _Plans, Jf, Jt):
-    """The [N, 6, 6] diagonal blocks of H."""
-    return _edge_sum(plans.edges, torch.einsum("eij,eik->ejk", Jf, Jf),
-                     torch.einsum("eij,eik->ejk", Jt, Jt))
+def _diag_terms(Jf, Jt):
+    """The edges' terms of the [N, 6, 6] diagonal blocks of H."""
+    return (torch.einsum("eij,eik->ejk", Jf, Jf),
+            torch.einsum("eij,eik->ejk", Jt, Jt))
 
 
 def _dense_step(params: torch.Tensor, g: PoseGraph, plans: _Plans,
@@ -152,7 +148,8 @@ def _dense_step(params: torch.Tensor, g: PoseGraph, plans: _Plans,
     n = params.shape[0]
     r = residuals(params, g)
     Jf, Jt = _edge_jacobians(params, g)
-    grad = reduce(_gradient(plans, Jf, Jt, r))
+    grad = reduce(cuda_kernels.segment_sums(
+        plans.edges, _gradient_terms(Jf, Jt, r))[0])
     Hft = torch.einsum("eij,eik->ejk", Jf, Jt)
     # H as [N * N, 6, 6] blocks, block (a, b) at row a * n + b
     blocks = reduce(cuda_kernels.segment_sum(
@@ -179,8 +176,9 @@ def _hvp(v: torch.Tensor, g: PoseGraph, plans: _Plans, Jf, Jt, lam,
     pose 0's row is the identity (gauge)."""
     y = (torch.einsum("eij,ej->ei", Jf, v[g.e_from])
          + torch.einsum("eij,ej->ei", Jt, v[g.e_to]))
-    out = reduce(_edge_sum(plans.edges, torch.einsum("eij,ei->ej", Jf, y),
-                           torch.einsum("eij,ei->ej", Jt, y))) + lam * v
+    out = reduce(cuda_kernels.segment_sums(
+        plans.edges, (torch.einsum("eij,ei->ej", Jf, y),
+                      torch.einsum("eij,ei->ej", Jt, y)))[0]) + lam * v
     first = (torch.arange(v.shape[0], device=v.device) == 0)[:, None]
     return torch.where(first, v, out)
 
@@ -192,8 +190,9 @@ def _pcg_step(params: torch.Tensor, g: PoseGraph, plans: _Plans,
     n = params.shape[0]
     r = residuals(params, g)
     Jf, Jt = _edge_jacobians(params, g)
-    grad = reduce(_gradient(plans, Jf, Jt, r))
-    diag = reduce(_diag(plans, Jf, Jt))
+    # the gradient and the diagonal blocks in one launch
+    grad, diag = map(reduce, cuda_kernels.segment_sums(
+        plans.edges, _gradient_terms(Jf, Jt, r), _diag_terms(Jf, Jt)))
     tr = torch.sum(torch.diagonal(diag, dim1=-2, dim2=-1))
     lam = _div(damping * tr, n * 6)
     eye6 = torch.eye(6, dtype=params.dtype, device=params.device)

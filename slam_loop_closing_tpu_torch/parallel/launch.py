@@ -47,12 +47,23 @@ def _rank_main(rank: int, fn, world_size: int, device: str, tmpdir: str,
         dist.destroy_process_group()
 
 
-def spawn(fn, world_size: int, *, device="cpu", args: tuple = (),
+def spawn(fn, world_size: int, *, device="cuda", args: tuple = (),
           timeout: float = 120.0) -> list:
-    """Run ``fn(mesh, *args)`` on ``world_size`` spawned ranks (gloo on
-    ``device="cpu"``, NCCL on CUDA, rank ``r`` on GPU ``r``); returns every
-    rank's result in rank order. Raises :class:`TimeoutError` when the ranks
-    have not all finished within ``timeout`` seconds (they are killed)."""
+    """Run ``fn(mesh, *args)`` on ``world_size`` spawned ranks (NCCL on
+    CUDA, rank ``r`` on GPU ``r``, the default; gloo on ``device="cpu"``);
+    returns every rank's result in rank order. Raises :class:`RuntimeError`
+    before starting a rank when CUDA is asked for and the ranks' GPUs are
+    not there, and :class:`TimeoutError` when the ranks have not all
+    finished within ``timeout`` seconds (they are killed)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        need = world_size if dev.index is None else dev.index + 1
+        have = torch.cuda.device_count()
+        if have < need:
+            raise RuntimeError(
+                f"spawn on {device}: {world_size} rank(s) need {need} CUDA "
+                f"device(s), this machine has {have}; pass device=\"cpu\" "
+                "for gloo ranks on the CPU")
     with tempfile.TemporaryDirectory(prefix="slam_mesh_") as tmpdir:
         ctx = mp.start_processes(
             _rank_main, args=(fn, world_size, str(device), tmpdir, args,

@@ -139,8 +139,9 @@ def load() -> ctypes.CDLL:
         # patches [k, 32, 32], valid [k], weights [1024, 2], angle [k], k,
         # stream
         "slam_orient_moments": (p, p, p, p, i, p),
-        # values [e, d], order [e], offsets [n + 1], out [n, d], n, d, stream
-        "slam_segment_sum": (p, p, p, p, i, i, p),
+        # the launch's arguments packed as int64 (see csrc/segment_sum.cu),
+        # stream
+        "slam_segment_sum": (ctypes.c_char_p, p),
         # img, gauss, resp, host taps [levels, 19], host radii [levels],
         # levels, b, h, w, s (0: gauss only), thr, edge_r, (edge_r + 1)^2,
         # border, stream

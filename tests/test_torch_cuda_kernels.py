@@ -851,7 +851,16 @@ def test_sift_front_end_batch_invariant_on_card(dev):
             assert torch.equal(a, b), f"{name} differs at chunk {c}"
 
 
-SEGMENT_WIDTHS = {1: (), 3: (3,), 6: (6,), 9: (3, 3), 36: (6, 6)}
+SEGMENT_WIDTHS = {1: (), 3: (3,), 6: (6,), 9: (3, 3), 36: (6, 6),
+                  42: (6, 7)}
+# kernel N's forms, by the plan's threshold (``SHORT_ROWS`` when the plan
+# is built): by segment length (the library's), every non-empty segment
+# long (a block each), every segment short (a thread a chain, a 5,000-row
+# segment in batches)
+SEGMENT_FORMS = {"by length": ck.SHORT_ROWS, "all long": 0,
+                 "all short": 2 ** 30}
+SEGMENT_CASES = ["random", "empty segments", "one long segment", "permuted",
+                 "camera of 5,000 rows", "10,000 segments of degree 2"]
 
 
 def _segment_case(rng, case: str):
@@ -877,25 +886,29 @@ def _segment_case(rng, case: str):
     raise ValueError(case)
 
 
-@pytest.mark.parametrize("case", ["random", "empty segments",
-                                  "one long segment", "permuted",
-                                  "camera of 5,000 rows",
-                                  "10,000 segments of degree 2"])
+def _spread(rng, e: int, d: int) -> torch.Tensor:
+    """[e, d] float32 whose magnitudes span ~1e-6 .. 1e6, so that any other
+    order of adds would show."""
+    mag = np.exp(rng.normal(size=(e, 1)) * 5.0)
+    return torch.from_numpy((rng.normal(size=(e, d)) * mag).astype(
+        np.float32))
+
+
+@pytest.mark.parametrize("form", SEGMENT_FORMS)
+@pytest.mark.parametrize("case", SEGMENT_CASES)
 @pytest.mark.parametrize("d", sorted(SEGMENT_WIDTHS))
-def test_segment_sum_kernel_bitwise(dev, d, case):
+def test_segment_sum_kernel_bitwise(dev, d, case, form, monkeypatch):
     """Kernel N against its plain version (and the plan built on the
-    card against the CPU's): every float's bits, on values whose
-    magnitudes span ~1e-6 .. 1e6, so that any other order of adds would
-    show; one launch count a call."""
+    card against the CPU's): every float's bits; one launch count a
+    call."""
     rng = np.random.default_rng(d)
     idx, n = _segment_case(rng, case)
-    mag = np.exp(rng.normal(size=(idx.shape[0], 1)) * 5.0)
-    vals = (rng.normal(size=(idx.shape[0], d)) * mag).astype(np.float32)
-    vals = torch.from_numpy(vals).reshape(-1, *SEGMENT_WIDTHS[d])
+    vals = _spread(rng, idx.shape[0], d).reshape(-1, *SEGMENT_WIDTHS[d])
+    monkeypatch.setattr(ck, "SHORT_ROWS", SEGMENT_FORMS[form])
     plan = ck.segment_plan(torch.from_numpy(idx).to(dev), n)
     cpu = ck.segment_plan(torch.from_numpy(idx), n)
-    assert torch.equal(plan.order.cpu(), cpu.order)
-    assert torch.equal(plan.offsets.cpu(), cpu.offsets)
+    for a, b in zip(plan[:4], cpu[:4]):
+        assert torch.equal(a.cpu(), b)
     before = ck.LAUNCHES["segment_sum"]
     got = ck.segment_sum(vals.to(dev), plan)
     assert ck.LAUNCHES["segment_sum"] == before + 1
@@ -903,6 +916,75 @@ def test_segment_sum_kernel_bitwise(dev, d, case):
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
     assert torch.equal(got.cpu().view(torch.int32),
                        ck.segment_sum(vals, cpu).view(torch.int32))
+
+
+@pytest.mark.parametrize("form", SEGMENT_FORMS)
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_segment_sums_kernel_several_sums_two_sources(dev, case, form,
+                                                      monkeypatch):
+    """Three sums in one launch (BA's H and g and a width-1 sum; PGO's
+    two-source gradient and diagonal), bitwise equal to the plain version
+    of each, the two-source sums to ``torch.cat`` of their parts."""
+    rng = np.random.default_rng(SEGMENT_CASES.index(case))
+    idx, n = _segment_case(rng, case)
+    e = idx.shape[0]
+    monkeypatch.setattr(ck, "SHORT_ROWS", SEGMENT_FORMS[form])
+    plan = ck.segment_plan(torch.from_numpy(idx).to(dev), n)
+    a = _spread(rng, e, 36).reshape(e, 6, 6).to(dev)
+    b = _spread(rng, e, 6).to(dev)
+    c = _spread(rng, e, 1)[:, 0].to(dev)
+    half = e // 2 + 1
+    for sums in ((a, b, c), ((a[:half], a[half:]), (b[:3], b[3:]), c)):
+        before = ck.LAUNCHES["segment_sum"]
+        got = ck.segment_sums(plan, *sums)
+        assert ck.LAUNCHES["segment_sum"] == before + 1
+        for g, s in zip(got, sums):
+            rows = torch.cat(s) if isinstance(s, tuple) else s
+            ref = ck.segment_sum_plain(rows, plan)
+            assert torch.equal(g.view(torch.int32), ref.view(torch.int32))
+
+
+def test_segment_sum_kernel_signed_zeros_and_no_rows(dev, monkeypatch):
+    """A segment of -0.0 rows sums to +0.0 in both forms, as index_add_
+    from zeros; a plan of no rows gives zeros."""
+    idx = torch.tensor([0, 0, 1, 1] + [2] * 40, device=dev)
+    vals = torch.full((44, 6), -0.0, device=dev)
+    vals[2] = 1.0
+    for short in SEGMENT_FORMS.values():
+        monkeypatch.setattr(ck, "SHORT_ROWS", short)
+        plan = ck.segment_plan(idx, 3)
+        got = ck.segment_sum(vals, plan)
+        assert not torch.signbit(got).any()
+        assert torch.equal(got.view(torch.int32), ck.segment_sum_plain(
+            vals, plan).view(torch.int32))
+    plan = ck.segment_plan(torch.zeros(0, dtype=torch.long, device=dev), 5)
+    got = ck.segment_sums(plan, torch.zeros((0, 6), device=dev),
+                          torch.zeros((0, 3, 3), device=dev))
+    assert [g.shape for g in got] == [(5, 6), (5, 3, 3)]
+    assert not any(g.any() for g in got)
+
+
+def test_segment_sums_kernel_one_row_of_unit_stride(dev):
+    """A sum of one row whose leading stride is not its width (``[1, 6]``
+    of stride (1, 1), ``[1, 3, 3]`` of stride (1, 3, 1)): ``contiguous``
+    returns it as it is, and the kernel still reads a whole row; alone and
+    as the first part of a pair."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    one = torch.randn((6, 1), generator=gen, device=dev).t()
+    block = torch.randn((3, 3, 1), generator=gen, device=dev).permute(2, 0, 1)
+    assert one.stride() == (1, 1) and block.stride() == (1, 3, 1)
+    assert one.contiguous() is one and block.contiguous() is block
+    plan = ck.segment_plan(torch.tensor([1], device=dev), 2)
+    for rows in (one, block):
+        got, = ck.segment_sums(plan, rows)
+        ref = ck.segment_sum_plain(rows, plan)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+        assert torch.equal(got[1], rows[0]) and not got[0].any()
+    rest = torch.randn((3, 6), generator=gen, device=dev)
+    plan = ck.segment_plan(torch.tensor([1, 0, 1, 1], device=dev), 2)
+    got, = ck.segment_sums(plan, (one, rest))
+    ref = ck.segment_sum_plain(torch.cat([one, rest]), plan)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
 def _pose_graph(dev, n: int, loops: int, seed: int):
@@ -978,3 +1060,42 @@ def test_ba_reproducible_on_card(dev):
     assert float(runs[0][2][-1]) < 1.0
     for a, b in zip(*runs):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_ba_and_pgo_make_no_host_sync(dev):
+    """BA (plans, sums, solves, acceptance) and PGO (dense and PCG) run on
+    the card with no host sync: ``set_sync_debug_mode("error")`` raises at
+    any."""
+    rng = np.random.default_rng(5)
+    ncam, npts, per = 12, 2000, 400
+    K = torch.tensor([[768.0, 0, 480], [0, 768, 270], [0, 0, 1]], device=dev)
+    truth = np.zeros((ncam, 6), np.float32)
+    truth[:, 3] = np.linspace(-1, 1, ncam)
+    X = np.stack([rng.uniform(-4, 4, npts), rng.uniform(-2, 2, npts),
+                  rng.uniform(8, 12, npts)], -1).astype(np.float32)
+    cam = np.repeat(np.arange(ncam), per)
+    pid = rng.integers(0, npts, cam.shape[0])
+    R, t = lie.params_to_pose(torch.from_numpy(truth))
+    Xc = (R[cam] @ torch.from_numpy(X[pid])[..., None])[..., 0] + t[cam]
+    uv = (Xc[:, :2] / Xc[:, 2:]) * 768.0 + torch.tensor([480.0, 270.0])
+    obs = ba.Observations(
+        torch.from_numpy(cam.astype(np.int32)).to(dev),
+        torch.from_numpy(pid.astype(np.int32)).to(dev), uv.to(dev),
+        torch.from_numpy(rng.random(cam.shape[0]) > 0.05).to(dev))
+    cams = torch.from_numpy(truth + rng.normal(0, 0.01, truth.shape).astype(
+        np.float32)).to(dev)
+    pts = torch.from_numpy(X).to(dev)
+    graphs = [(_pose_graph(dev, n, 3, seed=n),
+               PgoConfig(dense_solver_max_poses=1500 if n < 100 else 0,
+                         cg_iterations=10)) for n in (60, 600)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = ba.alternating_ba(K, cams, pts, obs, None, BaConfig(), 2)
+        pgo_out = [pgo.optimize_pose_graph(p, g, cfg, 3)
+                   for (p, g), cfg in graphs]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert float(out[2][-1]) < 1.0
+    for p, costs in pgo_out:
+        assert float(costs[-1]) < float(costs[0])

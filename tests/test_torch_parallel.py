@@ -404,6 +404,28 @@ def test_spawn_raises_rank_failure():
         launch.spawn(_raiser, 1, device="cpu", timeout=60.0)
 
 
+def test_spawn_defaults_to_cuda():
+    """``spawn`` runs NCCL ranks on the cards unless asked for the CPU."""
+    import inspect
+
+    sig = inspect.signature(launch.spawn)
+    assert sig.parameters["device"].default == "cuda"
+
+
+def test_spawn_without_gpu_raises_before_any_rank(monkeypatch):
+    """With no device given on a machine without GPUs, ``spawn`` raises
+    before it starts a process; nothing falls back to gloo."""
+    started = []
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    monkeypatch.setattr(launch.mp, "start_processes",
+                        lambda *a, **k: started.append(a))
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        launch.spawn(_raiser, 1)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        launch.spawn(_raiser, 2, device="cuda:0")
+    assert not started
+
+
 def test_make_mesh_on_cuda_never_falls_back():
     """Without NCCL or a visible GPU a CUDA mesh raises; nothing moves the
     work to gloo or to the CPU."""

@@ -8,7 +8,11 @@ float's bits, signed zeros too), on values whose magnitudes spread over
 many orders so that any other order would show. BA and PGO are held to the JAX package within ROADMAP R10's
 unchanged tolerances (PGO 1e-4; BA 1e-4 for cameras, 1e-3 for points), with
 the plans built once per call, and no float sum of either left to
-``index_add_``.
+``index_add_``. ``segment_sums`` (several sums over one plan, a sum of
+two row lists read as one) is held bitwise to separate plain sums and
+``torch.cat``, the plan's list of long segments to numpy, and BA and PGO
+bitwise to a composition of one sum a launch, with the launches of a
+Gauss-Newton or PCG step counted.
 """
 
 import jax
@@ -312,3 +316,333 @@ def test_no_float_index_add_in_ba_or_pgo(ba_scene, loop_graph, monkeypatch):
             dense_solver_max_poses=limit, max_iterations=2))
     assert outside and set(outside) == {torch.int32}
     assert len(sums) > 40 and set(sums) == {torch.float32}
+
+
+# ---------------------------------------------------------------------------
+# Several sums a launch, two sources a sum, the plan's long / short split
+# ---------------------------------------------------------------------------
+
+SUM_WIDTHS = {"BA cameras H, g": ((6, 6), (6,)),
+              "BA points H, g": ((3, 3), (3,)),
+              "PGO gradient, diagonal": ((6,), (6, 6)),
+              "three sums": ((3, 3), (3,), ()),
+              "one sum": ((),)}
+
+
+@pytest.mark.parametrize("widths", SUM_WIDTHS.values(), ids=SUM_WIDTHS)
+def test_segment_sums_equal_separate_plain_sums(widths):
+    """One call over several row tensors of one plan gives, bit for bit,
+    what a separate ``segment_sum_plain`` gives for each."""
+    rng = np.random.default_rng(len(widths) * 11 + len(widths[0]))
+    n, e = 40, 2400
+    idx = torch.from_numpy(index_case(rng, "one long segment", n, e))
+    plan = ck.segment_plan(idx, n)
+    vals = [torch.from_numpy(spread_values(
+        rng, e, int(np.prod(w)))).reshape(e, *w) for w in widths]
+    got = ck.segment_sums(plan, *vals)
+    assert len(got) == len(vals)
+    for g, v in zip(got, vals):
+        ref = ck.segment_sum_plain(v, plan)
+        assert g.shape == ref.shape
+        assert np.array_equal(bits(g), bits(ref))
+
+
+@pytest.mark.parametrize("split", [0, 1, 1201, 2400])
+def test_segment_sums_two_sources_equal_cat(split):
+    """A (first, second) pair reads as the rows of ``torch.cat``; beside a
+    one-source sum in the same call."""
+    rng = np.random.default_rng(split)
+    n, e = 40, 2400
+    idx = torch.from_numpy(index_case(rng, "random", n, e))
+    plan = ck.segment_plan(idx, n)
+    rows = torch.from_numpy(spread_values(rng, e, 36)).reshape(e, 6, 6)
+    other = torch.from_numpy(spread_values(rng, e, 6))
+    pair, single = ck.segment_sums(plan, (rows[:split], rows[split:]), other)
+    ref = ck.segment_sum(torch.cat([rows[:split], rows[split:]]), plan)
+    assert np.array_equal(bits(pair), bits(ref))
+    assert np.array_equal(bits(single),
+                          bits(ck.segment_sum_plain(other, plan)))
+
+
+def test_segment_sums_checks_its_inputs():
+    plan = ck.segment_plan(torch.tensor([0, 1, 1]), 2)
+    rows = torch.zeros((3, 6))
+    with pytest.raises(ValueError, match="one to three"):
+        ck.segment_sums(plan, rows, rows, rows, rows)
+    with pytest.raises(ValueError, match="two parts"):
+        ck.segment_sums(plan, (rows[:1], rows[:1]))
+    with pytest.raises(ValueError, match="two parts"):
+        ck.segment_sums(plan, (rows[:1], torch.zeros((2, 3))))
+    with pytest.raises(ValueError, match="two parts"):
+        ck.segment_sums(plan, (rows[:1], rows[1:], rows[:0]))
+
+
+def numpy_long_split(idx: np.ndarray, n: int, short_rows: int):
+    """(segment lengths, the segments of more than ``short_rows`` rows in
+    ascending order) by numpy."""
+    inside = idx[(idx >= 0) & (idx < n)]
+    lengths = np.bincount(inside, minlength=n)[:n]
+    return lengths, np.flatnonzero(lengths > short_rows)
+
+
+def plan_index(rng, case: str):
+    if case == "empty plan":
+        return np.zeros(0, np.int64), 7
+    if case == "no segments":
+        return rng.integers(-3, 0, 50), 0
+    if case == "empty segments":
+        return index_case(rng, "empty segments", 40, 2400), 40
+    if case == "camera of 5,000 rows":
+        idx = rng.integers(0, 95, 20000)
+        idx[rng.permutation(20000)[:5000]] = 95
+        return idx, 96
+    if case == "10,000 segments of degree 2":
+        return rng.permutation(np.repeat(np.arange(10000), 2)), 10000
+    if case == "rows outside every segment":
+        idx = rng.integers(-1, 12, 300)
+        idx[::7] = 40
+        return idx, 12
+    return index_case(rng, case, 40, 2400), 40
+
+
+PLAN_CASES = ("empty plan", "no segments", "empty segments", "random",
+              "one long segment", "camera of 5,000 rows",
+              "10,000 segments of degree 2", "rows outside every segment")
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_segment_plan_long_split_equals_numpy(case, monkeypatch):
+    """The plan's list of long segments (more than ``SHORT_ROWS`` rows,
+    ascending, first) and their count, against numpy; at the library's
+    threshold and at 0 (every non-empty segment long)."""
+    rng = np.random.default_rng(PLAN_CASES.index(case))
+    idx, n = plan_index(rng, case)
+    for short_rows in (ck.SHORT_ROWS, 0):
+        monkeypatch.setattr(ck, "SHORT_ROWS", short_rows)
+        plan = ck.segment_plan(torch.from_numpy(idx), n)
+        lengths, long_ids = numpy_long_split(idx, n, short_rows)
+        assert plan.n == n and plan.short_rows == short_rows
+        assert plan.long_blocks == 0     # a plan on the CPU
+        assert plan.long_ids.dtype == torch.int32
+        assert plan.long_count.dtype == torch.int32
+        assert plan.long_ids.shape == (n,)
+        assert int(plan.long_count) == long_ids.size
+        assert np.array_equal(plan.long_ids.numpy()[:long_ids.size], long_ids)
+        assert np.array_equal(np.sort(plan.long_ids.numpy()), np.arange(n))
+        assert np.array_equal(plan.offsets.diff().numpy(), lengths)
+    if case == "camera of 5,000 rows":
+        assert long_ids.tolist() == list(range(96))
+        assert int(plan.offsets[96] - plan.offsets[95]) == 5000
+
+
+# ---------------------------------------------------------------------------
+# BA and PGO against the composition of one sum a launch (torch.cat)
+# ---------------------------------------------------------------------------
+
+def separate_refine(K, cam_params, points, obs, argnum, movable,
+                    iterations, damping, reduce):
+    """``ba._refine`` with H, g and the errors each a sum of its own."""
+    x0 = cam_params if argnum == 1 else points
+    group = obs.cam if argnum == 1 else obs.point
+    plan = ck.segment_plan(torch.where(obs.valid, group.long(), -1),
+                           x0.shape[0])
+
+    def scatter(values):
+        return reduce(ck.segment_sum(values, plan))
+
+    def args(x):
+        return (x, points) if argnum == 1 else (cam_params, x)
+
+    def errs(x):
+        return scatter(tba.reprojection_errors(K, *args(x), obs) ** 2)
+
+    x, err_x = x0, errs(x0)
+    for _ in range(iterations):
+        r, J = tba._per_obs_jacobians(K, *args(x), obs, argnum)
+        H = scatter(torch.einsum("oik,oil->okl", J, J))
+        g = scatter(torch.einsum("oik,oi->ok", J, r))
+        delta = torch.where(movable[:, None],
+                            tba._solve_damped(H, g, damping), 0.0)
+        cand = x + delta
+        err_cand = errs(cand)
+        better = (err_cand <= err_x) & torch.all(torch.isfinite(cand), dim=1)
+        x = torch.where(better[:, None], cand, x)
+        err_x = torch.where(better, err_cand, err_x)
+    return x
+
+
+def cat_edge_sum(plan, from_terms, to_terms):
+    return ck.segment_sum(torch.cat([from_terms, to_terms]), plan)
+
+
+def separate_dense_step(params, g, plans, damping, reduce):
+    """``pgo._dense_step`` with the gradient's two lists concatenated."""
+    n = params.shape[0]
+    r = tpgo.residuals(params, g)
+    Jf, Jt = tpgo._edge_jacobians(params, g)
+    grad = reduce(cat_edge_sum(plans.edges,
+                                torch.einsum("eij,ei->ej", Jf, r),
+                                torch.einsum("eij,ei->ej", Jt, r)))
+    Hft = torch.einsum("eij,eik->ejk", Jf, Jt)
+    blocks = reduce(ck.segment_sum(
+        torch.cat([torch.einsum("eij,eik->ejk", Jf, Jf),
+                   torch.einsum("eij,eik->ejk", Jt, Jt), Hft,
+                   Hft.transpose(1, 2)]), plans.blocks))
+    Hm = blocks.reshape(n, n, 6, 6).permute(0, 2, 1, 3).reshape(n * 6, n * 6)
+    bm = grad.reshape(n * 6)
+    lam = tpgo._div(damping * torch.trace(Hm), n * 6)
+    eye = torch.eye(n * 6, dtype=params.dtype, device=params.device)
+    Hm = Hm + lam * eye
+    fix = torch.arange(n * 6, device=params.device) < 6
+    Hm = torch.where(fix[:, None] | fix[None, :], eye, Hm)
+    bm = torch.where(fix, 0.0, bm)
+    L, _ = torch.linalg.cholesky_ex(Hm)
+    return torch.cholesky_solve(-bm[:, None], L)[:, 0].reshape(n, 6)
+
+
+def separate_hvp(v, g, plans, Jf, Jt, lam, reduce):
+    y = (torch.einsum("eij,ej->ei", Jf, v[g.e_from])
+         + torch.einsum("eij,ej->ei", Jt, v[g.e_to]))
+    out = reduce(cat_edge_sum(plans.edges, torch.einsum("eij,ei->ej", Jf, y),
+                               torch.einsum("eij,ei->ej", Jt, y))) + lam * v
+    first = (torch.arange(v.shape[0], device=v.device) == 0)[:, None]
+    return torch.where(first, v, out)
+
+
+def separate_pcg_step(params, g, plans, damping, cg_iterations, reduce):
+    """``pgo._pcg_step`` with a sum a launch and the lists concatenated."""
+    n = params.shape[0]
+    r = tpgo.residuals(params, g)
+    Jf, Jt = tpgo._edge_jacobians(params, g)
+    grad = reduce(cat_edge_sum(plans.edges,
+                                torch.einsum("eij,ei->ej", Jf, r),
+                                torch.einsum("eij,ei->ej", Jt, r)))
+    diag = reduce(cat_edge_sum(plans.edges,
+                                torch.einsum("eij,eik->ejk", Jf, Jf),
+                                torch.einsum("eij,eik->ejk", Jt, Jt)))
+    tr = torch.sum(torch.diagonal(diag, dim1=-2, dim2=-1))
+    lam = tpgo._div(damping * tr, n * 6)
+    eye6 = torch.eye(6, dtype=params.dtype, device=params.device)
+    first = (torch.arange(n, device=params.device) == 0)
+    Minv = torch.linalg.inv_ex(diag + lam * eye6)[0]
+    Minv = torch.where(first[:, None, None], eye6, Minv)
+    b = torch.where(first[:, None], 0.0, -grad)
+
+    def precond(x):
+        return torch.einsum("nij,nj->ni", Minv, x)
+
+    tiny = torch.full((), 1e-20, dtype=params.dtype, device=params.device)
+    x = torch.zeros_like(b)
+    res = b - separate_hvp(x, g, plans, Jf, Jt, lam, reduce)
+    z = precond(res)
+    p = z
+    for _ in range(cg_iterations):
+        Ap = separate_hvp(p, g, plans, Jf, Jt, lam, reduce)
+        rz = torch.sum(res * z)
+        alpha = rz / torch.maximum(torch.sum(p * Ap), tiny)
+        x = x + alpha * p
+        res = res - alpha * Ap
+        z_new = precond(res)
+        beta = torch.sum(res * z_new) / torch.maximum(rz, tiny)
+        p = z_new + beta * p
+        z = z_new
+    return x
+
+
+@pytest.fixture
+def separate_sums(monkeypatch):
+    """Puts BA's and PGO's steps with one sum a launch, the two edge lists
+    concatenated, in place of the current ones."""
+    def use():
+        monkeypatch.setattr(tba, "_refine", separate_refine)
+        monkeypatch.setattr(tpgo, "_dense_step", separate_dense_step)
+        monkeypatch.setattr(tpgo, "_pcg_step", separate_pcg_step)
+    return use
+
+
+def ba_inputs(ba_scene):
+    K, params, X, obs, pv = ba_scene
+    return T(K), T(params), T(X), tba.Observations(*map(T, obs)), T(pv)
+
+
+def same_bits(a, b) -> None:
+    for x, y in zip(a if isinstance(a, tuple) else (a,),
+                    b if isinstance(b, tuple) else (b,)):
+        assert np.array_equal(bits(x), bits(y))
+
+
+BA_CALLS = {
+    "refine_cameras": lambda K, p, X, obs, pv: tba.refine_cameras(
+        K, p, X, obs, torch.arange(p.shape[0]) == 0, iterations=4),
+    "refine_points": lambda K, p, X, obs, pv: tba.refine_points(
+        K, p, X, obs, pv, iterations=4),
+    "alternating_ba": lambda K, p, X, obs, pv: tba.alternating_ba(
+        K, p, X, obs, pv, tc.BaConfig(), outer_iterations=2),
+}
+
+
+@pytest.mark.parametrize("name", BA_CALLS)
+def test_ba_equals_separate_sums(ba_scene, separate_sums, name):
+    """H and g summed in one call give the bits of separate sums."""
+    args = ba_inputs(ba_scene)
+    got = BA_CALLS[name](*args)
+    separate_sums()
+    same_bits(got, BA_CALLS[name](*args))
+
+
+@pytest.mark.parametrize("dense", [True, False])
+def test_optimize_pose_graph_equals_separate_sums(loop_graph,
+                                                 separate_sums, dense):
+    """The two-source sums (no ``torch.cat``) and the gradient and diagonal
+    in one call give the bits of separate sums, poses and costs."""
+    est, graph = loop_graph
+    gt = tpgo.PoseGraph(*(T(a).long() if i < 2 else T(a)
+                          for i, a in enumerate(graph)))
+    cfg = tc.PgoConfig(dense_solver_max_poses=1500 if dense else 4,
+                       max_iterations=4, cg_iterations=12)
+    got = tpgo.optimize_pose_graph(T(est), gt, cfg)
+    separate_sums()
+    same_bits(got, tpgo.optimize_pose_graph(T(est), gt, cfg))
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """The number of sums of each ``segment_sums`` call (one launch of
+    kernel N on the card) while the test runs."""
+    calls = []
+    sums = ck.segment_sums
+
+    def counted(plan, *args):
+        calls.append(len(args))
+        return sums(plan, *args)
+
+    monkeypatch.setattr(ck, "segment_sums", counted)
+    return calls
+
+
+@pytest.mark.parametrize("argnum", [1, 2])
+def test_ba_launches_per_gauss_newton_step(ba_scene, launches, argnum):
+    """A refine of i iterations: 1 + 2 i launches (the errors at the start,
+    then each step's H and g together and the candidate's errors)."""
+    K, p, X, obs, pv = ba_inputs(ba_scene)
+    if argnum == 1:
+        tba.refine_cameras(K, p, X, obs, iterations=5)
+    else:
+        tba.refine_points(K, p, X, obs, pv, iterations=5)
+    assert launches == [1] + [2, 1] * 5
+
+
+@pytest.mark.parametrize("dense", [True, False])
+def test_pgo_launches_per_step(loop_graph, launches, dense):
+    """Dense: a step's gradient, then its [N * N] blocks; PCG: the gradient
+    and the diagonal together, then one Hessian-vector product before CG
+    and one a CG iteration."""
+    est, graph = loop_graph
+    gt = tpgo.PoseGraph(*(T(a).long() if i < 2 else T(a)
+                          for i, a in enumerate(graph)))
+    cg = 7
+    tpgo.optimize_pose_graph(T(est), gt, tc.PgoConfig(
+        dense_solver_max_poses=1500 if dense else 4, max_iterations=3,
+        cg_iterations=cg))
+    step = [1, 1] if dense else [2] + [1] * (cg + 1)
+    assert launches == step * 3
