@@ -23,15 +23,23 @@ each printed with its result and seconds on its own line:
    kernel D also with its target split forced to 1 and 16, beside a bf16
    +-1 matmul and max on operands unpacked beforehand; kernel E also on
    single sets of 4,000 and 1,531 matches (its target rows split over
-   blocks), with profiler device times beside the CUDA-event ones;
+   blocks), with profiler device times beside the CUDA-event ones; kernel
+   S (the small Jacobi SVD of the two-view geometry) on the matrices that
+   one RANSAC at 1, 32 and 256 pairs gives it (3x3 and 9x9, and the live
+   pair's 2,000 4x4 DLT systems), bitwise against its plain version on the
+   card and on the CPU, beside ``torch.linalg.svd`` of the same batch, with
+   the host syncs of those RANSACs (none allowed) and of
+   ``essential_eight_point_fast``'s ``torch.linalg.eigh`` (printed);
 4. slice process_video: ``LoopClosingSystem(device="cuda").process_video``
    on 96 frames of 1080p synthetic closed-loop video at ORB-2000 with one
    keypoint per 8-px cell — kernels A, B and C must launch, the orbit's
    closing loop must be found, every loop must respect the gap;
 5. slice process_stream: the live per-frame API on the same 96 frames from
    host memory (``max_frames=512``, the README's assumed camera): a
-   warm-up pass that counts the host syncs per frame, a timed pass —
-   kernels A, B, D, E and the frame-pair count must launch, the loop set
+   warm-up pass that counts the host syncs per frame (a median of at most
+   1 on each side of the loop gap, the frame's readback, and none from
+   ``ops/epipolar.py``), a timed pass —
+   kernels A, B, D, E, S and the frame-pair count must launch, the loop set
    must equal process_video's, frame 1's pose must be accepted with
    triangulated points — then the stage split of a few frames;
 6. agreement: two 1080p frames through the ORB front-end on the CPU
@@ -51,8 +59,9 @@ each printed with its result and seconds on its own line:
    bench_reconstruct.py's configuration (96 x 540x960 uint8 orbit frames,
    ORB-1000 grid 8, its keyframe / loop-verify gates, 1,024 RANSAC
    hypotheses, ``use_scan=True``): a warm-up pass that counts the host
-   syncs of the keyframe pass, a timed run from host memory that writes
-   the OBJ under a temporary directory — kernels A, B, E, F and N must
+   syncs of the keyframe pass (at most 14 in its 95 steps, none from
+   ``ops/epipolar.py``), a timed run from host memory that writes
+   the OBJ under a temporary directory — kernels A, B, E, F, N and S must
    launch, the loop must be found, the final reprojection error must be
    below the error before BA — two timed runs on frames resident on the
    card (bench_reconstruct.py's contract, no OBJ), each bitwise equal to
@@ -65,9 +74,10 @@ each printed with its result and seconds on its own line:
    card): equal front-end outputs, keyframes, loop pair and loop match
    count; the loop's inlier counts within 3, the map's point and
    observation counts within 1% and the reprojection errors within 10%
-   (cuSOLVER's and LAPACK's SVDs differ in the last bits, which flips a
-   few points at the Sampson and parallax gates, and the pose chain moves
-   with them). The
+   (cuSOLVER's and LAPACK's QR of the 8-point refits differ in the last
+   bits, which flips a few points at the Sampson and parallax gates, and
+   the pose chain moves with them; the SVDs after it give the same bits on
+   both devices since kernel S). The
    fixture runs at 512 hypotheses, not the tests' 128: at 128 the
    generator's own draws meet a RANSAC collapse at frame 19 (the JAX
    package collapses the same way on the same draws), no loop is found,
@@ -97,7 +107,7 @@ each printed with its result and seconds on its own line:
     bench_reconstruct.py's SIFT configuration (96 x 1080x1920 uint8 orbit
     frames, SIFT-4000, flat selection, 4 octaves, chunks of 8, f = 0.8 w,
     the same gates and 1,024 hypotheses, ``use_scan=True``), measured as
-    phase 8 — kernels B, E, G, H, J's float32 mode and N must launch, the
+    phase 8 — kernels B, E, G, H, J's float32 mode, N and S must launch, the
     loop must be found, the final reprojection error must be below the
     error before BA, every run bitwise equal to the first; before it, the
     SIFT front-end on 8 of those frames in chunks of 1, 4 and 8, every
@@ -204,7 +214,9 @@ kernels C, K5, D, F and I (2 x 256 one-bit operations a row pair; NVIDIA
 publishes no b1 rate for this card, so the peak is the instruction rate of
 ``mma.sync.m16n8k256.b1`` that ``csrc/probes/probe_hamming_forms.py``
 measured); for kernels J (both modes), M and N, bound by bytes, their
-float32 multiplies and adds on the FMA pipe; for kernel A the min/max and float32
+float32 multiplies and adds on the FMA pipe; for kernel S its float64
+operations (counted from the sweeps and rotations each matrix ran) on the
+FP64 pipe; for kernel A the min/max and float32
 instructions it issues, each at its pipe's instruction rate (FMNMX at half
 the FFMA rate; the rates that ``csrc/probes/probe_rates.py`` measures
 agree), the arc extrema
@@ -214,9 +226,11 @@ float32 SIMT otherwise. ``library_ms`` is null (no single
 PyTorch call computes the kernel's function) except for kernel I, where it
 is the matmul-and-``amax`` form at 8192 x 8192, kernel D (the
 matmul-and-``max`` form at 2000 x 2000), kernels J (both modes) and M,
-where it is the cuBLAS form each replaced, and kernel N, where it is
-``index_add_`` (float atomics) of the same rows (a ``library`` key says
-which). The last
+where it is the cuBLAS form each replaced, kernel N, where it is
+``index_add_`` (float atomics) of the same rows, and kernel S, where it is
+``torch.linalg.svd`` of the same batch (a ``library`` key says which; S
+adds a ``shapes`` map: 3x3 x 1, 32 and 256, 9x9 x 1, 32 and 256, 4x4 x
+2,000, its record being 9x9 x 1, the live refit). The last
 line is
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX; run
 without the package beside it, it fails at the package's import.
@@ -267,7 +281,10 @@ REPLACES = {"fast_score_nms_blur": f"{PKG}:736",     # _fast_kernel
             # scatter-adds (.at[].add) of BA's and PGO's normal equations
             "resize_f32": "slam_loop_closing_tpu/ops/sift.py:456",
             "segment_sum": "slam_loop_closing_tpu/ops/ba.py:129-189, "
-                           "slam_loop_closing_tpu/ops/pgo.py:93-138"}
+                           "slam_loop_closing_tpu/ops/pgo.py:93-138",
+            # jnp.linalg.svd of the two-view geometry
+            "svd_small": "slam_loop_closing_tpu/ops/epipolar.py:106, :129, "
+                         ":165, :199"}
 SOURCES = {"fast_score_nms_blur": "fast_score_nms_blur.cu",
            "extract_patches": "extract_patches.cu",
            "band_count_tiles": "band_counts.cu",
@@ -281,11 +298,13 @@ SOURCES = {"fast_score_nms_blur": "fast_score_nms_blur.cu",
            "pyramid_level": "pyramid_level.cu",
            "resize_f32": "pyramid_level.cu",
            "orient_moments": "orient_moments.cu",
-           "segment_sum": "segment_sum.cu"}
+           "segment_sum": "segment_sum.cu",
+           "svd_small": "svd_small.cu"}
 ORB_KERNELS = ("pyramid_level", "fast_score_nms_blur", "extract_patches",
                "orient_moments")   # the ORB front-end's
 VIDEO_KERNELS = ORB_KERNELS + ("band_count_tiles",)
-STREAM_KERNELS = ORB_KERNELS + ("pair_counts", "hamming_nn", "motion_support")
+STREAM_KERNELS = ORB_KERNELS + ("pair_counts", "hamming_nn", "motion_support",
+                                 "svd_small")
 SFM_FRAMES, SFM_H, SFM_W = 96, 540, 960   # bench_reconstruct.py's defaults
 SFM_FEATURES = 1000
 SFM_STORE, SFM_GAP = 48, 24     # kernel F's loop-search check: K/2 gap
@@ -293,7 +312,11 @@ SUPPORT_EXTRA_SIZES = (4000, 1531)   # kernel E at batch 1 beside the live 2000
 SIFT_STORE_ROWS = 1536      # rows a frame of the SIFT keyframe store (the
                             # count bucket of SIFT-4000's 927-1,413 valid)
 SFM_KERNELS = ORB_KERNELS + ("hamming_knn2", "motion_support",
-                             "segment_sum")
+                             "segment_sum", "svd_small")
+# host syncs a keyframe pass may take (95 steps): the frames' upload
+# (image.py's torch.as_tensor, 12), the pass's result and the front-end's
+# readback; the two-view geometry takes none (kernel S, F5)
+KEYFRAME_SYNCS = 14
 # CPU vs card on the SfM fixture: float gates (the Sampson threshold, the
 # parallax gate) flip for a few points near their thresholds, so inlier and
 # map counts agree within these bounds, not exactly
@@ -304,7 +327,7 @@ SFM_RTOL = 0.1                  # reprojection errors (a map a few points
 SIFT_FRAMES, SIFT_H, SIFT_W = 96, 1080, 1920   # bench_reconstruct.py's SIFT
 SIFT_FEATURES = 4000                           # configuration
 SIFT_KERNELS = ("extract_patches", "motion_support", "l2_knn2",
-                "gauss_stack_resp", "resize_f32", "segment_sum")
+                "gauss_stack_resp", "resize_f32", "segment_sum", "svd_small")
 SIFT_G_ATOL = 1e-5          # kernel G on real descriptors: dots summed in
                             # another order than cuBLAS's
 SIFT_KEYPOINTS_AGREE = 0.99  # CPU keypoints found on the card (phase 12)
@@ -341,9 +364,12 @@ SMS, BOOST_HZ = 132, 1.98e9
 # throughput table, compute capability 9.0); csrc/probes/probe_rates.py
 # measures 29.3-29.8 and 16.3-16.5 T/s, the same half ratio at the clock
 # the card holds under load.
+# "dfma": float64 multiply, add or FMA instructions, 64 a clock an SM (the
+# same table; the data sheet's 34 TFLOP/s of float64 outside the tensor
+# cores counts an FMA as two flops): kernel S works in float64.
 PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12, "b1": 10.1e15,
                   "tf32": 495e12, "ffma": 128 * SMS * BOOST_HZ,
-                  "fmnmx": 64 * SMS * BOOST_HZ}
+                  "fmnmx": 64 * SMS * BOOST_HZ, "dfma": 64 * SMS * BOOST_HZ}
 # kernel A's instructions a pixel, by the pipe they issue on: every pixel
 # pays the compass pre-test (8 compares, counted on the min/max pipe, and 16
 # subtracts), the NMS (9 maxima) and the blur (2 x (7 multiplies + 6
@@ -434,7 +460,8 @@ KERNEL_NAMES = {"fast_score_nms_blur_kernel": "fast_score_nms_blur",
                 "pyramid_level_kernel": "pyramid_level",
                 "resize_f32_kernel": "resize_f32",
                 "orient_moments_kernel": "orient_moments",
-                "segment_sum_kernel": "segment_sum"}
+                "segment_sum_kernel": "segment_sum",
+                "svd_small_kernel": "svd_small"}
 def kernel_device_ms(prof, path: str, device_ms: dict) -> None:
     """Each kernel's summed device time (ms) in a profile of one run of a
     main path, by wrapper name: kept in ``device_ms[path]`` and printed."""
@@ -709,6 +736,156 @@ def check_kernels(frames_dev, dev) -> dict:
     return records
 
 
+# kernel S at the main paths' RANSAC shapes: (pairs, matches, hypotheses)
+# of the live pair (ORB-2000, 512 hypotheses), the SfM loop verification's
+# chunk (32 x ORB-1000, 1,024) and verify_pairs_sharded's (256 x 1,000)
+SVD_RANSACS = ((1, NUM_FEATURES, 512), (32, SFM_FEATURES, 1024),
+               (256, SFM_FEATURES, 1024))
+SVD_FOCAL = 800.0
+
+
+def svd_ops(n: int, sweeps, rotations) -> float:
+    """Kernel S's float64 operations over a batch, from the sweeps and
+    rotations each matrix ran (``svd_jacobi_plain``): a pair looked at costs
+    its three sums (3n multiplies, 3(n - 1) adds) and the test (3
+    multiplies, a compare); a rotation 13 for its parameters (a division or
+    square root counted as one) and 12n to turn two columns of G and V;
+    the singular values 2n a column."""
+    pairs = n * (n - 1) // 2
+    return float(sweeps.double().sum() * pairs * (6 * n + 1)
+                 + rotations.double().sum() * (12 * n + 13)
+                 + sweeps.numel() * 2 * n * n)
+
+
+def two_view_matches(rng, pairs: int, n: int):
+    """(x1, x2 [pairs, n, 2] normalized points, mask [pairs, n]): two views
+    of a random cloud 6-12 units ahead, a small turn about y and a sideways
+    step, 0.5 px of noise at f = SVD_FOCAL, a fifth of the matches replaced
+    by random points, a tenth masked out."""
+    X = rng.uniform((-4.0, -3.0, 6.0), (4.0, 3.0, 12.0), (pairs, n, 3))
+    ang = rng.uniform(0.02, 0.1, pairs)
+    c, s = np.cos(ang), np.sin(ang)
+    R = np.zeros((pairs, 3, 3))
+    R[:, 0, 0], R[:, 0, 2], R[:, 1, 1] = c, s, 1.0
+    R[:, 2, 0], R[:, 2, 2] = -s, c
+    t = np.stack([np.ones(pairs), 0.1 * rng.normal(size=pairs),
+                  0.2 * rng.normal(size=pairs)], -1)
+    Xc = np.einsum("pij,pnj->pni", R, X) + t[:, None]
+    x1 = X[..., :2] / X[..., 2:]
+    x2 = Xc[..., :2] / Xc[..., 2:]
+    noise = 0.5 / SVD_FOCAL
+    x1 = x1 + rng.normal(0, noise, x1.shape)
+    x2 = x2 + rng.normal(0, noise, x2.shape)
+    bad = rng.random((pairs, n)) < 0.2
+    x2[bad] = rng.uniform(-0.6, 0.6, (int(bad.sum()), 2))
+    mask = rng.random((pairs, n)) < 0.9
+    return x1.astype(np.float32), x2.astype(np.float32), mask
+
+
+def check_svd_kernel(dev) -> dict:
+    """Kernel S against its plain version (on the card, and on the CPU: the
+    same bits) on the matrices that RANSAC gives it at the main paths'
+    shapes, recorded from one RANSAC of each (with the live pair's DLT
+    triangulation); CUDA-event, profiler and plain times beside
+    ``torch.linalg.svd`` of the same batch (the library column: the port no
+    longer calls it); the host syncs of one RANSAC (none allowed) and of
+    ``essential_eight_point_fast``'s ``torch.linalg.eigh`` (printed)."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.config import RansacConfig
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    from slam_loop_closing_tpu_torch.ops import epipolar, ransac
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(16)
+    kernel = ck.svd_small
+    calls = collections.Counter()
+    inputs = {}
+
+    def record(a, compute_u=False):
+        n = a.shape[-1]
+        key = (n, a.numel() // (n * n), compute_u)
+        calls[key] += 1
+        inputs.setdefault(key, a.detach().clone())
+        return kernel(a, compute_u)
+
+    eye = torch.eye(3, device=dev)
+    zero = torch.zeros(3, device=dev)
+    sync_counts = {}
+    ck.svd_small = record
+    try:
+        for pairs, n, hyp in SVD_RANSACS:
+            x1, x2, mask = (torch.from_numpy(x[0] if pairs == 1 else x).to(dev)
+                            for x in two_view_matches(rng, pairs, n))
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(pairs)
+            noise = ransac.gumbel_noise(gen, hyp, n, tuple(x1.shape[:-2]))
+            idx = ransac.sample_minimal_sets(noise, mask, 8)
+            cfg = RansacConfig(num_hypotheses=hyp)
+
+            def geometry():
+                res = ransac.essential_from_samples(x1, x2, mask, idx,
+                                                    SVD_FOCAL, cfg)
+                if pairs == 1:
+                    epipolar.triangulate_dlt(eye, zero, res.R, res.t, x1, x2)
+                return res
+
+            torch.cuda.synchronize()
+            res, syncs, sources = count_syncs_in(geometry)
+            sync_counts[pairs] = syncs
+            if syncs or not bool(res.ok.all()):
+                raise AssertionError(f"RANSAC of {pairs} pair(s): {syncs} "
+                                     f"host syncs {dict(sources)}, ok "
+                                     f"{res.ok.tolist()}")
+    finally:
+        ck.svd_small = kernel
+    x1, x2, mask = (torch.from_numpy(x[0]).to(dev)
+                    for x in two_view_matches(rng, 1, NUM_FEATURES))
+    _, eigh_syncs, eigh_sources = count_syncs_in(
+        lambda: epipolar.essential_eight_point_fast(x1, x2, mask.float()))
+    phase("RANSAC host syncs", t0, f"one RANSAC at 1, 32 and 256 pairs: "
+          f"{sync_counts} (kernel S; none allowed); "
+          f"essential_eight_point_fast (torch.linalg.eigh, on no main path): "
+          f"{eigh_syncs} {dict(eigh_sources)}")
+
+    shapes = {}
+    for (n, batch, compute_u), a in sorted(inputs.items()):
+        t0 = time.perf_counter()
+        label = f"{n}x{n} x {batch}"
+        got = [x for x in kernel(a, compute_u) if x is not None]
+        ref = [x for x in ck.svd_small_plain(a, compute_u) if x is not None]
+        cpu = [x for x in ck.svd_small_plain(a.cpu(), compute_u)
+               if x is not None]
+        if not all(same_bits(g, r) and same_bits(r.cpu(), c)
+                   for g, r, c in zip(got, ref, cpu)):
+            raise AssertionError(f"svd_small ({label}) differs from its "
+                                 "plain version")
+        _, sweeps, rotations = ck.svd_jacobi_plain(a.reshape(-1, n, n).cpu())
+        rec = dict(
+            shape=[batch, n, n], compute_u=compute_u,
+            calls=calls[(n, batch, compute_u)],
+            sweeps_mean=float(sweeps.double().mean()),
+            sweeps_max=int(sweeps.max()), max_abs_err=0.0,
+            ms=cuda_ms(lambda: kernel(a, compute_u), 50),
+            device_ms=device_ms(lambda: kernel(a, compute_u), 20),
+            plain_ms=cuda_ms(lambda: ck.svd_small_plain(a, compute_u), 2),
+            **bound_pipes(batch * (2 * n * n + n + 9 * compute_u) * 4,
+                          {"dfma": svd_ops(n, sweeps, rotations)}))
+        rec["library_ms"] = cuda_ms(lambda: torch.linalg.svd(a), 20)
+        shapes[label] = rec
+        phase(f"kernel S svd_small {label}", t0,
+              f"{rec['calls']} calls in the RANSAC(s) above; bitwise the "
+              f"plain version on the card and on the CPU; sweeps mean "
+              f"{rec['sweeps_mean']:.2f}, max {rec['sweeps_max']}; kernel "
+              f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), plain "
+              f"{rec['plain_ms']:.2f} ms, torch.linalg.svd "
+              f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+              f"({rec['bound_by']})")
+    primary = dict(shapes["9x9 x 1"], library="torch.linalg.svd of the same "
+                  "batch (cuSOLVER; two host syncs a call)", shapes=shapes)
+    return {"svd_small": primary}
+
+
 def check_live_kernels(dev) -> dict:
     """Kernels D, E and the frame-pair count at the live path's shapes."""
     import torch
@@ -979,6 +1156,12 @@ def run_stream(frames_u8: np.ndarray, dev, video_loops,
           f"{syncs[0]}")
     for src, cnt in sources.most_common():
         print(f"  sync source {src}: {cnt} in {FRAMES} frames")
+    svd = [src for src in sources if "epipolar.py" in src]
+    if svd or max(np.median(syncs[1:gap]), np.median(syncs[gap:])) > 1:
+        raise AssertionError(f"live host syncs: medians {np.median(syncs[1:gap])}"
+                             f" / {np.median(syncs[gap:])} a frame before / "
+                             f"past the gap (1 allowed, the readback), "
+                             f"sources in the geometry {svd}")
 
     # stage split of frames >= gap on the filled database
     timer = StageTimer(dev)
@@ -1326,6 +1509,9 @@ def run_sfm(frames: np.ndarray, cfg, label: str, kernels, dev,
           "step, front-end included)")
     for src, cnt in sources.most_common():
         print(f"  keyframe-pass sync source {src}: {cnt}")
+    if syncs > KEYFRAME_SYNCS or any("epipolar.py" in src for src in sources):
+        raise AssertionError(f"keyframe pass: {syncs} host syncs (at most "
+                             f"{KEYFRAME_SYNCS}), sources {dict(sources)}")
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -3627,6 +3813,7 @@ def main() -> int:
           f"x {MV_H}x{MV_W}, {CLI_FRAMES} x {CLI_H}x{CLI_W})")
 
     records, device_ms = check_kernels(frames_dev, dev), {}
+    records.update(check_svd_kernel(dev))
     video_launches, video_loops = run_slice(frames_dev, dev, device_ms)
     stream_launches = run_stream(frames, dev, video_loops, device_ms)
     fe_launches = run_sharded_frontend(mesh, frames_dev, device_ms,

@@ -32,6 +32,7 @@ resize_f32             csrc/pyramid_level.cu         none: XLA's resize matmuls
 orient_moments         csrc/orient_moments.cu        none: XLA's moment sums
 segment_sums,          csrc/segment_sum.cu           none: XLA's scatter-adds
 segment_sum
+svd_small              csrc/svd_small.cu             none: XLA's small SVDs
 =====================  ============================  ===========================
 
 ``pyramid_level`` (J), its float32 mode ``resize_f32`` (the SIFT octave
@@ -40,7 +41,9 @@ to XLA and the port first ran as cuBLAS products: they sum in a fixed order,
 so the front-end's bits do not depend on its batch size. ``segment_sum``
 (N) replaces the float atomics of CUDA's ``index_add_`` in the normal
 equations of BA and PGO: its sums run in a fixed order, so the backend
-gives the same bits at every run.
+gives the same bits at every run. ``svd_small`` (S) replaces
+``torch.linalg.svd`` in the two-view geometry, whose cuSOLVER path reads its
+convergence info back to the host twice a call.
 
 ``band_count_tiles``, ``pair_counts`` and ``hamming_d1`` share one inner loop,
 ``csrc/hamming_mma.cuh``: the tensor cores' one-bit and-popc product on the
@@ -72,7 +75,8 @@ LAUNCHES = {"fast_score_nms_blur": 0, "extract_patches": 0,
             "band_count_tiles": 0, "pair_counts": 0, "hamming_nn": 0,
             "hamming_knn2": 0, "motion_support": 0, "l2_knn2": 0,
             "gauss_stack_resp": 0, "hamming_d1": 0, "pyramid_level": 0,
-            "resize_f32": 0, "orient_moments": 0, "segment_sum": 0}
+            "resize_f32": 0, "orient_moments": 0, "segment_sum": 0,
+            "svd_small": 0}
 
 
 def reset_launch_counts() -> None:
@@ -1212,3 +1216,178 @@ def segment_sums(plan: SegmentPlan, *sums) -> list:
 def segment_sum(values: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
     """:func:`segment_sum_plain`, through :func:`segment_sums`."""
     return segment_sums(plan, values)[0]
+
+
+# --------------------------------------------------------------------------
+# S: a batched one-sided Jacobi SVD of small matrices (two-view geometry)
+# --------------------------------------------------------------------------
+
+SVD_SIZES = (3, 4, 9)    # the n of kernel S's n x n matrices
+SVD_SWEEPS = 30          # sweeps a matrix at most (csrc/svd_small.cu)
+SVD_TOL2 = 2.0 ** -46    # a pair is rotated while gamma^2 > tol^2 alpha beta
+
+
+def svd_rounds(n: int) -> list[list[tuple[int, int]]]:
+    """Kernel S's sweep: the round-robin ordering of ``n`` columns, a list
+    of rounds of disjoint pairs ``(i, j)``, ``i < j``. With ``m`` = ``n``
+    rounded up to even, round ``r`` pairs positions ``k`` and ``m - 1 - k``
+    of ``arr_r[0] = 0``, ``arr_r[p] = 1 + (p - 1 - r) mod (m - 1)``; a pair
+    with the padding column ``n`` (odd ``n``) is left out."""
+    m = n + (n & 1)
+
+    def slot(r, p):
+        return 0 if p == 0 else 1 + (p - 1 - r) % (m - 1)
+
+    rounds = []
+    for r in range(m - 1):
+        pairs = [tuple(sorted((slot(r, k), slot(r, m - 1 - k))))
+                 for k in range(m // 2)]
+        rounds.append([(i, j) for i, j in pairs if j < n])
+    return rounds
+
+
+@functools.cache
+def _svd_round_index(n: int, device: torch.device) -> list:
+    """Each round of :func:`svd_rounds` as one index tensor on ``device``:
+    its pairs' ``i`` columns, then their ``j`` columns."""
+    return [torch.tensor([p[0] for p in r] + [p[1] for p in r],
+                         device=device) for r in svd_rounds(n)]
+
+
+def _ordered_sum(terms: torch.Tensor) -> torch.Tensor:
+    """``terms[..., 0] + terms[..., 1] + ...``, added one by one in that
+    order (``torch.sum`` picks its own order, another on each device)."""
+    out = terms[..., 0]
+    for k in range(1, terms.shape[-1]):
+        out = out + terms[..., k]
+    return out
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float64 square root, as CUDA's: ``torch.sqrt`` on
+    a CUDA tensor; numpy's on the CPU, where ``torch.sqrt`` is off by an ulp
+    for some inputs on some builds (a vectorized approximation)."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.from_numpy(np.sqrt(x.numpy()))
+
+
+def svd_jacobi_plain(a: torch.Tensor):
+    """Kernel S's sweeps on ``a`` [B, n, n] float32, in float64: (``w`` [B,
+    n, 2n] float64, row ``c`` holding column ``c`` of the rotated G = A V
+    and then of V; ``sweeps`` and ``rotations`` [B] int32, the sweeps each
+    matrix ran and the rotations it applied: its work). Each
+    round of :func:`svd_rounds` is one batched step over its pairs; a
+    matrix whose sweep rotated nothing is done (its later sweeps rotate
+    nothing either, so the batch runs until every matrix is done, or
+    :data:`SVD_SWEEPS`)."""
+    b, n, _ = a.shape
+    eye = torch.eye(n, dtype=torch.float64, device=a.device)
+    w = torch.cat([a.transpose(1, 2).double(), eye.expand(b, n, n)], dim=2)
+    # a true division: torch.reciprocal (and 1.0 / x, which calls it) is
+    # not correctly rounded in float64 on some CPU builds
+    one = torch.ones((), dtype=torch.float64, device=a.device)
+    sweeps = torch.zeros(b, dtype=torch.int32, device=a.device)
+    rotations = torch.zeros_like(sweeps)
+    active = torch.ones(b, dtype=torch.bool, device=a.device)
+    for _ in range(SVD_SWEEPS):
+        rotated = torch.zeros_like(active)
+        for ij in _svd_round_index(n, a.device):
+            p = ij.shape[0] // 2
+            z = w.index_select(1, ij)                      # [B, 2P, 2n]
+            x, y = z[:, :p], z[:, p:]
+            s = _ordered_sum(torch.cat([z[..., :n] * z[..., :n],
+                                        x[..., :n] * y[..., :n]], 1))
+            al, be, ga = s[:, :p], s[:, p:2 * p], s[:, 2 * p:]
+            rot = ga * ga > SVD_TOL2 * al * be
+            zeta = (be - al) / (ga + ga)
+            t = torch.copysign(one / (zeta.abs() + _sqrt_rn(
+                1.0 + zeta * zeta)), zeta)
+            c = (one / _sqrt_rn(1.0 + t * t))[..., None]
+            sn = c * t[..., None]
+            new = torch.cat([c * x - sn * y, sn * x + c * y], 1)
+            w.index_copy_(1, ij, torch.where(
+                torch.cat([rot, rot], 1)[..., None], new, z))
+            rotated |= rot.any(1)
+            rotations += rot.sum(1, dtype=torch.int32)
+        sweeps += active.to(torch.int32)
+        active &= rotated
+        if not bool(active.any()):
+            break
+    return w, sweeps, rotations
+
+
+def svd_small_plain(a: torch.Tensor, compute_u: bool = False):
+    """(U [..., 3, 3] or None, S [..., n], Vh [..., n, n]) of ``a`` [..., n,
+    n] float32 in kernel S's arithmetic (csrc/svd_small.cu): the sweeps of
+    :func:`svd_jacobi_plain` in float64; sigma the norm of each rotated
+    column; columns sorted by descending sigma, stably (NaN last); U (n =
+    3) from the first two sorted columns, a zero sigma completed from the
+    identity's columns, u3 = u1 x u2, and v3's sign turned where g3 . u3 <
+    0 so that ``U diag(S) Vh = A``; every output rounded to float32 at the
+    end."""
+    lead, n = a.shape[:-2], a.shape[-1]
+    w = svd_jacobi_plain(a.reshape(-1, n, n))[0]
+    g, v = w[..., :n], w[..., n:]
+    sig = _sqrt_rn(_ordered_sum(g * g))                           # [B, n]
+    key = torch.where(sig == sig, sig, -1.0)
+    kc, kd = key[:, :, None], key[:, None, :]
+    earlier = torch.ones(n, n, dtype=torch.bool, device=a.device).tril(-1)
+    rank = ((kd > kc) | ((kd == kc) & earlier)).sum(-1)
+    order = torch.argsort(rank, dim=1)
+    s = sig.gather(1, order)
+    vh = v.gather(1, order[..., None].expand(-1, -1, n))
+    u = None
+    if compute_u:
+        _require(n == 3, "U for 3 x 3 matrices only")
+        gs = g.gather(1, order[..., None].expand(-1, -1, n))
+        e = torch.eye(3, dtype=torch.float64, device=a.device)
+        u1 = torch.where(s[:, 0:1] > 0, gs[:, 0] / s[:, 0:1], e[0])
+        # e_k less its u1 component, k the first smallest |u1_k|
+        au = u1.abs()
+        kk = torch.where(au[:, 1] < au[:, 0], 1, 0)
+        uk = torch.where(kk == 1, u1[:, 1], u1[:, 0])
+        kk = torch.where(au[:, 2] < uk.abs(), 2, kk)
+        uk = torch.where(kk == 2, u1[:, 2], uk)
+        wk = e[kk] - uk[:, None] * u1
+        nrm = _sqrt_rn(_ordered_sum(wk * wk))
+        u2 = torch.where(s[:, 1:2] > 0, gs[:, 1] / s[:, 1:2],
+                         wk / nrm[:, None])
+        u3 = torch.stack([u1[:, 1] * u2[:, 2] - u1[:, 2] * u2[:, 1],
+                          u1[:, 2] * u2[:, 0] - u1[:, 0] * u2[:, 2],
+                          u1[:, 0] * u2[:, 1] - u1[:, 1] * u2[:, 0]], 1)
+        flip = _ordered_sum(gs[:, 2] * u3) < 0
+        vh = torch.cat([vh[:, :2], torch.where(flip[:, None], -vh[:, 2],
+                                               vh[:, 2])[:, None]], 1)
+        u = torch.stack([u1, u2, u3], dim=-1).to(a.dtype).reshape(*lead, 3,
+                                                                  3)
+    return (u, s.to(a.dtype).reshape(*lead, n),
+            vh.to(a.dtype).reshape(*lead, n, n))
+
+
+def svd_small(a: torch.Tensor, compute_u: bool = False):
+    """:func:`svd_small_plain` of ``a`` [..., n, n] float32, n in
+    :data:`SVD_SIZES`: ``(U | None, S, Vh)``, S descending, U only for n =
+    3 (det U = +1). On a CUDA tensor one launch of kernel S (a thread a
+    matrix), bitwise equal to the plain version; no host sync."""
+    _require(a.dim() >= 2 and a.shape[-1] == a.shape[-2]
+             and a.shape[-1] in SVD_SIZES,
+             f"a must be [..., n, n] with n in {SVD_SIZES}")
+    _require(a.dtype == torch.float32, "a must be float32")
+    n = a.shape[-1]
+    _require(not compute_u or n == 3, "U for 3 x 3 matrices only")
+    if not _on_cuda(a):
+        return svd_small_plain(a, compute_u)
+    lead = a.shape[:-2]
+    flat = a.reshape(-1, n, n).contiguous()
+    batch = flat.shape[0]
+    _require(batch < 2 ** 31, "at most 2^31 - 1 matrices a launch")
+    s = flat.new_empty(batch, n)
+    vh = flat.new_empty(batch, n, n)
+    u = flat.new_empty(batch, 3, 3) if compute_u else None
+    if batch:
+        _launch("svd_small", flat.device, flat.data_ptr(),
+                None if u is None else u.data_ptr(), s.data_ptr(),
+                vh.data_ptr(), n, batch)
+    return (None if u is None else u.reshape(*lead, 3, 3),
+            s.reshape(*lead, n), vh.reshape(*lead, n, n))

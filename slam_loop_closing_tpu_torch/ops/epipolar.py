@@ -9,13 +9,16 @@ solver over hypotheses, the cheirality vote over the four pose candidates,
 and the 8-point solve, Sampson errors and pose recovery over the candidate
 pairs of the SfM loop search (``[..., N, 2]`` points).
 
-On a CUDA device every function is a short chain of PyTorch kernels; the
-small SVDs and the QR go through ``torch.linalg`` (cuSOLVER), and each
-``torch.linalg.svd`` call reads cuSOLVER's convergence info back to the host
-(two host syncs per call, measured on an H100; nothing else here reads the
-device). SVD sign and ordering conventions differ between LAPACK, cuSOLVER
-and XLA: E is defined up to sign, and :func:`recover_pose` picks its (R, t)
-by the cheirality vote, which does not depend on them.
+On a CUDA device every function is a short chain of PyTorch kernels with no
+host sync. The four small SVDs (:func:`project_to_essential` and
+:func:`decompose_essential` on 3 x 3 matrices, :func:`essential_eight_point`
+on the 9 x 9 R of its QR, :func:`triangulate_dlt` on 4 x 4 systems) go
+through :func:`..cuda_kernels.svd_small`, kernel S (a one-sided Jacobi SVD,
+``csrc/svd_small.cu``; its plain version on the CPU, the same bits on both);
+the QR stays with ``torch.linalg.qr`` (cuSOLVER, no readback). SVD sign and
+ordering conventions differ between LAPACK, XLA and kernel S: E is defined
+up to sign, and :func:`recover_pose` picks its (R, t) by the cheirality vote,
+which does not depend on them.
 """
 
 from __future__ import annotations
@@ -103,7 +106,9 @@ def nullspace_8x9(A: torch.Tensor) -> torch.Tensor:
 def project_to_essential(E: torch.Tensor) -> torch.Tensor:
     """Nearest essential matrix: singular values -> (s, s, 0) with
     s = (s1 + s2) / 2. Batched over leading axes."""
-    U, S, Vt = torch.linalg.svd(E)
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels
+
+    U, S, Vt = cuda_kernels.svd_small(E, compute_u=True)
     s = (S[..., 0] + S[..., 1]) * 0.5
     z = torch.zeros_like(s)
     return (U * torch.stack([s, s, z], dim=-1)[..., None, :]) @ Vt
@@ -116,9 +121,13 @@ def essential_eight_point(x1: torch.Tensor, x2: torch.Tensor,
     vector of the 9x9 R (the same vector as the SVD of the design, without
     squaring its condition number), project onto the essential manifold.
     Batched over leading axes of [..., N, 2] points and [..., N] weights."""
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels
+
     Aw = epipolar_design(x1, x2) * weights[..., None]
     R = torch.linalg.qr(Aw, mode="r").R                  # [..., 9, 9]
-    Vt9 = torch.linalg.svd(R, full_matrices=True).Vh
+    if R.shape[-2] < 9:                  # fewer than 9 points: [R; 0]
+        R = torch.nn.functional.pad(R, (0, 0, 0, 9 - R.shape[-2]))
+    Vt9 = cuda_kernels.svd_small(R)[2]
     return project_to_essential(Vt9[..., -1, :].reshape(*Vt9.shape[:-2], 3,
                                                          3))
 
@@ -154,8 +163,9 @@ def decompose_essential(E: torch.Tensor):
     (R2,-t) as ([..., 4, 3, 3], [..., 4, 3]) (cv::decomposeEssentialMat:
     R1 = U W V^T, R2 = U W^T V^T, t = u3, with determinant sign fixes so R
     are proper rotations)."""
-    U, _, Vt = torch.linalg.svd(E)
-    U = U * torch.sign(_det3(U))[..., None, None]
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels
+
+    U, _, Vt = cuda_kernels.svd_small(E, compute_u=True)   # det U = +1
     Vt = Vt * torch.sign(_det3(Vt))[..., None, None]
     # W = [[0, -1, 0], [1, 0, 0], [0, 0, 1]] from the identity's rows, on
     # the device (a host tensor, or a write of a Python scalar into a CUDA
@@ -193,7 +203,10 @@ def triangulate_dlt(R1: torch.Tensor, t1: torch.Tensor, R2: torch.Tensor,
     vector of each correspondence's 4x4 system (one batched SVD). Returns
     [N, 3] world points, the homogeneous division guarded; callers gate on
     depth as the reference does."""
-    Xh = torch.linalg.svd(_dlt_rows(R1, t1, R2, t2, x1, x2)).Vh[..., -1, :]
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels
+
+    Vh = cuda_kernels.svd_small(_dlt_rows(R1, t1, R2, t2, x1, x2))[2]
+    Xh = Vh[..., -1, :]
     w = Xh[..., 3]
     w_safe = torch.where(torch.abs(w) < 1e-12, 1e-12, w)
     return Xh[..., :3] / w_safe[..., None]

@@ -142,6 +142,9 @@ def load() -> ctypes.CDLL:
         # the launch's arguments packed as int64 (see csrc/segment_sum.cu),
         # stream
         "slam_segment_sum": (ctypes.c_char_p, p),
+        # a [batch, n, n], u [batch, 3, 3] or null, s [batch, n], vh
+        # [batch, n, n], n, batch, stream
+        "slam_svd_small": (p, p, p, p, i, i, p),
         # img, gauss, resp, host taps [levels, 19], host radii [levels],
         # levels, b, h, w, s (0: gauss only), thr, edge_r, (edge_r + 1)^2,
         # border, stream

@@ -16,7 +16,8 @@ ones its dot products sum in another order than cuBLAS's: distances within
 1e-5). So are the pyramid kernel's float32 mode (the SIFT octave halving)
 and the SIFT front-end across chunk sizes (R17), and the fixed-order
 segment sum (N), with which BA and PGO give the same bits at every run
-(F12).
+(F12), and the small Jacobi SVD (S) of the two-view geometry, which runs
+with no host sync (F5).
 """
 
 import dataclasses
@@ -36,7 +37,9 @@ from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
 from slam_loop_closing_tpu_torch.ops import image as image_ops
 from slam_loop_closing_tpu_torch.config import BaConfig, PgoConfig, SiftConfig
 from slam_loop_closing_tpu_torch.ops import ba, lie, matching, orb, pgo, sift
+from slam_loop_closing_tpu_torch.ops import epipolar, ransac
 from slam_loop_closing_tpu_torch.utils.synth_video import orbit_sequence
+from fixtures.synthetic import two_view_scene
 
 torch.set_num_threads(1)
 
@@ -1099,3 +1102,101 @@ def test_ba_and_pgo_make_no_host_sync(dev):
     assert float(out[2][-1]) < 1.0
     for p, costs in pgo_out:
         assert float(costs[-1]) < float(costs[0])
+
+
+def svd_inputs(n: int, batch: int, seed: int) -> torch.Tensor:
+    """[batch, n, n] float32: random matrices over four decades of scale,
+    with every fifth of rank n - 2, every seventh zero and, at n = 3, every
+    third a projected essential matrix (singular values s, s, 0)."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(batch, n, n)) * 10.0 ** rng.uniform(-2, 2,
+                                                             (batch, 1, 1))
+    a[::5, :, -2:] = a[::5, :, :2] @ rng.normal(size=(2, 2))
+    if n == 3:
+        m = a[::3].shape[0]
+        q1 = np.linalg.qr(rng.normal(size=(m, 3, 3)))[0]
+        q2 = np.linalg.qr(rng.normal(size=(m, 3, 3)))[0]
+        a[::3] = (q1 * np.array([1.0, 1.0, 0.0])) @ q2.transpose(0, 2, 1)
+    a[::7] = 0.0
+    return torch.from_numpy(a.astype(np.float32))
+
+
+def _svd_bits(out):
+    return [None if x is None else x.contiguous().view(torch.int32)
+            for x in out]
+
+
+@pytest.mark.parametrize("batch", [1, 32, 2000, 100000])
+@pytest.mark.parametrize("n", [3, 4, 9])
+def test_svd_small_kernel_bitwise(dev, n, batch):
+    """Kernel S against its plain version on the same matrices: U, S and
+    Vh bitwise. Up to 2,000 matrices the plain version runs on the CPU (so
+    the card's bits are the CPU's); at 100,000 on the card, and its bits
+    there are checked against the CPU's on the first 2,000."""
+    a = svd_inputs(n, batch, seed=n * 1000 + batch)
+    got = _svd_bits(ck.svd_small(a.to(dev), compute_u=n == 3))
+    if batch <= 2000:
+        ref = _svd_bits(ck.svd_small_plain(a, compute_u=n == 3))
+    else:
+        ref = _svd_bits(ck.svd_small_plain(a.to(dev), compute_u=n == 3))
+        cpu = _svd_bits(ck.svd_small_plain(a[:2000], compute_u=n == 3))
+        for r, c in zip(ref, cpu):
+            assert r is None or torch.equal(r[:2000].cpu(), c)
+    for g, r in zip(got, ref):
+        assert (g is None) == (r is None)
+        assert g is None or torch.equal(g.cpu(), r.cpu())
+
+
+def test_svd_small_kernel_batch_invariant_and_rejects(dev):
+    """A matrix's bits do not depend on its batch (alone, among 7, among
+    2,000); the kernel takes n in {3, 4, 9} and float32 only."""
+    a = svd_inputs(9, 2000, seed=11).to(dev)
+    full = _svd_bits(ck.svd_small(a))
+    part = _svd_bits(ck.svd_small(a[100:107]))
+    one = _svd_bits(ck.svd_small(a[103:104]))
+    for f, p, o in zip(full, part, one):
+        if f is not None:
+            assert torch.equal(f[100:107], p) and torch.equal(f[103], o[0])
+    for bad in (torch.zeros(2, 5, 5, device=dev),
+                torch.zeros(2, 3, 3, dtype=torch.float64, device=dev)):
+        with pytest.raises(ValueError):
+            ck.svd_small(bad)
+
+
+def test_two_view_geometry_makes_no_host_sync(dev):
+    """RANSAC on given minimal sets (one pair, and a chunk of 32 pairs),
+    recover_pose and triangulate_dlt over 2,000 points run on the card with
+    no host sync: ``set_sync_debug_mode("error")`` raises at any (F5: each
+    torch.linalg.svd read cuSOLVER's info back twice)."""
+    sc = two_view_scene(np.random.default_rng(2), n_points=2000,
+                        noise_px=0.5, n_outliers=400)
+    K = sc["K"]
+    c, f = K[:2, 2], np.array([K[0, 0], K[1, 1]])
+    x1 = torch.from_numpy(((sc["uv1"] - c) / f).astype(np.float32)).to(dev)
+    x2 = torch.from_numpy(((sc["uv2"] - c) / f).astype(np.float32)).to(dev)
+    n = x1.shape[0]
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cfg = RansacConfig(num_hypotheses=256)
+    noise = ransac.gumbel_noise(gen, 256, n, (32,))
+    idx = ransac.sample_minimal_sets(noise, mask.expand(32, n), 8)
+    xs1, xs2 = x1.expand(32, n, 2), x2.expand(32, n, 2)
+    focal = float(K[0, 0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        one = ransac.essential_from_samples(x1, x2, mask, idx[0], focal, cfg)
+        chunk = ransac.essential_from_samples(xs1, xs2, mask.expand(32, n),
+                                              idx, focal, cfg)
+        R, t, pose_mask, _ = epipolar.recover_pose(one.E, x1, x2,
+                                                   one.inliers)
+        eye = torch.eye(3, device=dev)
+        zero = torch.zeros(3, device=dev)
+        X = epipolar.triangulate_dlt(eye, zero, R, t, x1, x2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    truth = torch.from_numpy(sc["R"].astype(np.float32)).to(dev)
+    assert bool(one.ok) and bool(chunk.ok.all())
+    assert float(torch.abs(R - truth).max()) < 1e-2
+    assert X.shape == (n, 3) and bool(torch.isfinite(X[pose_mask]).all())
