@@ -782,22 +782,18 @@ def two_view_matches(rng, pairs: int, n: int):
     return x1.astype(np.float32), x2.astype(np.float32), mask
 
 
-def check_svd_kernel(dev) -> dict:
-    """Kernel S against its plain version (on the card, and on the CPU: the
-    same bits) on the matrices that RANSAC gives it at the main paths'
-    shapes, recorded from one RANSAC of each (with the live pair's DLT
-    triangulation); CUDA-event, profiler and plain times beside
-    ``torch.linalg.svd`` of the same batch (the library column: the port no
-    longer calls it); the host syncs of one RANSAC (none allowed) and of
-    ``essential_eight_point_fast``'s ``torch.linalg.eigh`` (printed)."""
+def record_svd_inputs(dev, rng):
+    """The matrices kernel S gets from one RANSAC of each of
+    :data:`SVD_RANSACS` (with the live pair's DLT triangulation), on the
+    card: ({(n, batch, compute_u): the first such input}, the calls of
+    each, {pairs: host syncs of that RANSAC}). Raises if a RANSAC syncs
+    the host or fails."""
     import torch
 
     from slam_loop_closing_tpu_torch.config import RansacConfig
     from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
     from slam_loop_closing_tpu_torch.ops import epipolar, ransac
 
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(16)
     kernel = ck.svd_small
     calls = collections.Counter()
     inputs = {}
@@ -839,6 +835,26 @@ def check_svd_kernel(dev) -> dict:
                                      f"{res.ok.tolist()}")
     finally:
         ck.svd_small = kernel
+    return inputs, calls, sync_counts
+
+
+def check_svd_kernel(dev) -> dict:
+    """Kernel S against its plain version (on the card, and on the CPU: the
+    same bits) on the matrices that RANSAC gives it at the main paths'
+    shapes (:func:`record_svd_inputs`); CUDA-event, profiler and plain
+    times beside ``torch.linalg.svd`` of the same batch (the library
+    column: the port no longer calls it); the host syncs of one RANSAC
+    (none allowed) and of ``essential_eight_point_fast``'s
+    ``torch.linalg.eigh`` (printed)."""
+    import torch
+
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    from slam_loop_closing_tpu_torch.ops import epipolar
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(16)
+    kernel = ck.svd_small
+    inputs, calls, sync_counts = record_svd_inputs(dev, rng)
     x1, x2, mask = (torch.from_numpy(x[0]).to(dev)
                     for x in two_view_matches(rng, 1, NUM_FEATURES))
     _, eigh_syncs, eigh_sources = count_syncs_in(

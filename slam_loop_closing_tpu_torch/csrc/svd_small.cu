@@ -51,18 +51,41 @@
 // :129, :165, :199). The port ran them through torch.linalg.svd, whose
 // cuSOLVER path reads its convergence info back to the host twice a call.
 //
-// Design: one thread a matrix, G and V in registers or local memory (every
-// loop over the schedule is unrolled, so every index is a constant; at n =
-// 9 the 162 doubles exceed the registers and spill). Bound on the H100:
-// operations, the float64 sums and rotations of every sweep; the matrices
-// are a few hundred bytes each.
+// Design: a group of P lanes a matrix, a lane a pair of each round. P is
+// the real pairs of a round (n / 2: 4 at n = 9, 2 at n = 4, 1 at n = 3), so
+// a round costs one pair's latency, not P: the parameters of a rotation
+// are a strict chain of two divisions, two square roots and a third
+// division, in float64 software sequences, and one thread could not
+// overlap one pair's chain with the next. A warp holds 32 / P groups (no
+// group straddles a warp), a block is kThreads threads, and the grid gives
+// every matrix exactly one group. Lane p of round r takes the p-th real
+// pair (lane_pair below; tests/test_torch_svd_small.py mirrors it): its sums,
+// test, parameters and rotation are exactly the thread form's, in the same
+// order, and the pairs of a round touch disjoint columns, so running them
+// at once changes no bit. The warp syncs after each round, and a sweep's
+// "rotated" is the warp's __any_sync (see the kernel). G and V (and then
+// sigma) live in shared memory by column, 2 n^2 + n doubles a matrix
+// (1,368 bytes at n = 9); a lane loads its two columns of G into
+// registers, and its two of V once the chain is done, so nothing spills
+// (the thread form held all of G and V: 255 registers and 7.3 KB of
+// spills a thread at n = 9). A group of one lane (n = 3) keeps its
+// matrix in registers, as the thread form did. The tail spreads
+// over the group: lane p takes the columns p, p + P, ... for sigma, its
+// rank (sigma read back from shared memory) and its row of S and Vh; U (n
+// = 3) is one lane's. Bound on the H100: the latency of the chain of
+// rounds (sweeps x rounds x one pair's dependent arithmetic: its sums, its
+// test, its parameters and its rotation, fixed by the bits), far above the
+// float64 rate's bound at these batches; the matrices are a few hundred
+// bytes each.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 64;                        // threads a block
 constexpr int kSweeps = 30;                         // sweeps a matrix at most
 constexpr double kTol2 = 1.4210854715202004e-14;    // (2^-23)^2
 
@@ -71,24 +94,82 @@ __host__ __device__ constexpr int slot(int m, int r, int p) {
   return p == 0 ? 0 : 1 + ((p - 1 - r) % (m - 1) + (m - 1)) % (m - 1);
 }
 
-__device__ __forceinline__ double dot3(const double (&x)[3],
-                                       const double (&y)[3]) {
+// lanes a matrix: the real pairs of a round
+__host__ __device__ constexpr int lanes(int n) { return n / 2; }
+
+// a group of one lane keeps its matrix in registers, not shared memory
+__host__ __device__ constexpr bool in_registers(int n) {
+  return lanes(n) == 1;
+}
+
+// doubles a matrix takes in shared memory: G and V by column, then sigma;
+// odd, so that the groups of a warp start on different banks
+__host__ __device__ constexpr int footprint(int n) {
+  return (2 * n * n + n) | 1;
+}
+
+struct Pair {
+  int i, j;
+};
+
+// the pair (i, j), i < j, of lane p in round r: the p-th of the round's
+// pairs (k, m - 1 - k), in ascending k, that does not hold the padding
+// column m - 1 of an odd n (at position r of round r >= 1, at m - 1 of
+// round 0)
+__host__ __device__ constexpr Pair lane_pair(int n, int r, int p) {
+  const int m = n + (n & 1);
+  const int q = r == 0 ? m - 1 : r;
+  const int pad = q < m - 1 - q ? q : m - 1 - q;
+  const int k = (n & 1) && p >= pad ? p + 1 : p;
+  const int x = slot(m, r, k), y = slot(m, r, m - 1 - k);
+  return Pair{x < y ? x : y, x < y ? y : x};
+}
+
+// one matrix's columns of G and V, and its sigma: in registers (a group of
+// one lane: every index is a constant once the loops are unrolled) or in
+// the group's part of shared memory
+template <int N, bool kShared>
+struct Columns {
+  double g_[N][N], v_[N][N], s_[N];
+  __device__ explicit Columns(double*) {}
+  __device__ double* g(int c) { return g_[c]; }
+  __device__ double* v(int c) { return v_[c]; }
+  __device__ double* sig() { return s_; }
+};
+
+template <int N>
+struct Columns<N, true> {
+  double* base;
+  __device__ explicit Columns(double* b) : base(b) {}
+  __device__ double* g(int c) { return base + c * N; }
+  __device__ double* v(int c) { return base + (N + c) * N; }
+  __device__ double* sig() { return base + 2 * N * N; }
+};
+
+__device__ __forceinline__ double dot3(const double* x, const double* y) {
   return __dadd_rn(__dadd_rn(__dmul_rn(x[0], y[0]), __dmul_rn(x[1], y[1])),
                    __dmul_rn(x[2], y[2]));
 }
 
-// one Jacobi rotation of columns i < j of G and V; false if it was skipped
+// one Jacobi rotation of columns (gi, gj) of G and (vi, vj) of V, i < j;
+// false if it was skipped
 template <int N>
-__device__ __forceinline__ bool rotate(double (&g)[N][N], double (&v)[N][N],
-                                       int i, int j) {
-  double al = __dmul_rn(g[i][0], g[i][0]);
-  double be = __dmul_rn(g[j][0], g[j][0]);
-  double ga = __dmul_rn(g[i][0], g[j][0]);
+__device__ __forceinline__ bool rotate(double* gi, double* gj, double* vi,
+                                       double* vj) {
+  double x[N], y[N], p[N], q[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    x[k] = gi[k];
+    y[k] = gj[k];
+  }
+  double al = __dmul_rn(x[0], x[0]);
+  double be = __dmul_rn(y[0], y[0]);
+  double ga = __dmul_rn(x[0], y[0]);
 #pragma unroll
   for (int k = 1; k < N; ++k) {
-    al = __dadd_rn(al, __dmul_rn(g[i][k], g[i][k]));
-    be = __dadd_rn(be, __dmul_rn(g[j][k], g[j][k]));
-    ga = __dadd_rn(ga, __dmul_rn(g[i][k], g[j][k]));
+    al = __dadd_rn(al, __dmul_rn(x[k], x[k]));
+    be = __dadd_rn(be, __dmul_rn(y[k], y[k]));
+    ga = __dadd_rn(ga, __dmul_rn(x[k], y[k]));
   }
   if (!(__dmul_rn(ga, ga) > __dmul_rn(__dmul_rn(kTol2, al), be)))
     return false;
@@ -98,81 +179,116 @@ __device__ __forceinline__ bool rotate(double (&g)[N][N], double (&v)[N][N],
       copysign(__ddiv_rn(1.0, __dadd_rn(fabs(zeta), root)), zeta);
   const double c = __ddiv_rn(1.0, __dsqrt_rn(__dadd_rn(1.0, __dmul_rn(t, t))));
   const double s = __dmul_rn(c, t);
+  // V's columns only now: held across the chain's calls they spill
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    const double x = g[i][k], y = g[j][k];
-    g[i][k] = __dsub_rn(__dmul_rn(c, x), __dmul_rn(s, y));
-    g[j][k] = __dadd_rn(__dmul_rn(s, x), __dmul_rn(c, y));
-    const double p = v[i][k], q = v[j][k];
-    v[i][k] = __dsub_rn(__dmul_rn(c, p), __dmul_rn(s, q));
-    v[j][k] = __dadd_rn(__dmul_rn(s, p), __dmul_rn(c, q));
+    p[k] = vi[k];
+    q[k] = vj[k];
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    gi[k] = __dsub_rn(__dmul_rn(c, x[k]), __dmul_rn(s, y[k]));
+    gj[k] = __dadd_rn(__dmul_rn(s, x[k]), __dmul_rn(c, y[k]));
+    vi[k] = __dsub_rn(__dmul_rn(c, p[k]), __dmul_rn(s, q[k]));
+    vj[k] = __dadd_rn(__dmul_rn(s, p[k]), __dmul_rn(c, q[k]));
   }
   return true;
 }
 
 // a: [batch, N, N] row-major; s: [batch, N]; vh: [batch, N, N]; u: [batch,
-// 3, 3] (kU, N = 3 only)
+// 3, 3] (kU, N = 3 only). Matrix b is the group of threads b P .. b P + P -
+// 1 of the grid; its shared memory is its group's slot of the block's.
+// A warp of several groups syncs and stops as one (__syncwarp and
+// __any_sync over all its lanes: groups that sync apart diverge, and their
+// chains then run one after another), so it runs until every group of it
+// has had a quiet sweep, which changes no bit; its groups past the batch
+// run on zeros and store nothing. A lane that is its own group (n = 3)
+// stops on its own, and returns at once past the batch, as the thread
+// form did. At least one block an SM (__launch_bounds__'s second
+// argument) lets ptxas use the registers that keep the 3 x 3 tail with U
+// from spilling.
 template <int N, bool kU>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 svd_small_kernel(const float* __restrict__ a, float* __restrict__ u,
                  float* __restrict__ s, float* __restrict__ vh, int batch) {
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= batch) return;
-  const float* ab = a + static_cast<size_t>(b) * N * N;
-  double g[N][N], v[N][N];  // [column][row]
-#pragma unroll
-  for (int r = 0; r < N; ++r) {
-#pragma unroll
-    for (int c = 0; c < N; ++c) {
-      g[c][r] = static_cast<double>(ab[r * N + c]);
-      v[c][r] = r == c ? 1.0 : 0.0;
-    }
-  }
+  constexpr int P = lanes(N);
   constexpr int M = N + (N & 1);
+  constexpr int kCols = (N + P - 1) / P;  // columns a lane finishes
+  static_assert(32 % P == 0, "a group must not straddle a warp");
+  static_assert(!kU || P == 1, "U for 3 x 3 matrices only");
+  extern __shared__ double smem[];
+  // the lane's index: in 32 bits at one lane a matrix (the batch is below
+  // 2^31), where 64 bits cost 20-30 ns a 3 x 3 launch (probe_svd_forms.py)
+  using Index = typename std::conditional<P == 1, int, long long>::type;
+  const Index t = static_cast<Index>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long b = t / P;
+  const bool live = b < batch;
+  // a lane of its own returns past the batch (else its tail would run
+  // beside a live lane's sweeps); a warp of groups, when it has no matrix
+  if (P == 1 ? !live : (t & ~31ll) / P >= batch) return;
+  const int p = threadIdx.x % P;
+  Columns<N, !in_registers(N)> m(smem + threadIdx.x / P * footprint(N));
+
+  const float* ab = a + b * N * N;
+#pragma unroll
+  for (int e = p; e < N * N; e += P) {
+    const int r = e / N, c = e % N;
+    m.g(c)[r] = live ? static_cast<double>(ab[e]) : 0.0;
+    m.v(c)[r] = r == c ? 1.0 : 0.0;
+  }
+  if constexpr (P > 1) __syncwarp();
   for (int sweep = 0; sweep < kSweeps; ++sweep) {
     bool rotated = false;
 #pragma unroll
     for (int r = 0; r < M - 1; ++r) {
-#pragma unroll
-      for (int k = 0; k < M / 2; ++k) {
-        const int p = slot(M, r, k), q = slot(M, r, M - 1 - k);
-        const int i = p < q ? p : q, j = p < q ? q : p;
-        if (j < N) rotated |= rotate<N>(g, v, i, j);
-      }
+      const Pair ij = lane_pair(N, r, p);
+      rotated |= rotate<N>(m.g(ij.i), m.g(ij.j), m.v(ij.i), m.v(ij.j));
+      if constexpr (P > 1) __syncwarp();
     }
+    if constexpr (P > 1) rotated = __any_sync(0xffffffffu, rotated);
     if (!rotated) break;
   }
 
-  double sig[N], key[N];
+  double* sig = m.sig();
 #pragma unroll
-  for (int c = 0; c < N; ++c) {
-    double ss = __dmul_rn(g[c][0], g[c][0]);
+  for (int t = 0; t < kCols; ++t) {
+    const int c = p + t * P;
+    if (c < N) {
+      const double* gc = m.g(c);
+      double ss = __dmul_rn(gc[0], gc[0]);
 #pragma unroll
-    for (int k = 1; k < N; ++k) ss = __dadd_rn(ss, __dmul_rn(g[c][k], g[c][k]));
-    sig[c] = __dsqrt_rn(ss);
-    key[c] = sig[c] == sig[c] ? sig[c] : -1.0;
+      for (int k = 1; k < N; ++k) ss = __dadd_rn(ss, __dmul_rn(gc[k], gc[k]));
+      sig[c] = __dsqrt_rn(ss);
+    }
   }
-  int rank[N];
+  if constexpr (P > 1) __syncwarp();
+  int rank[kCols];
 #pragma unroll
-  for (int c = 0; c < N; ++c) {
-    int rk = 0;
+  for (int t = 0; t < kCols; ++t) {
+    const int c = p + t * P;
+    rank[t] = 0;
+    if (c < N) {
+      const double kc = sig[c] == sig[c] ? sig[c] : -1.0;
 #pragma unroll
-    for (int d = 0; d < N; ++d)
-      rk += (key[d] > key[c]) || (d < c && key[d] == key[c]);
-    rank[c] = rk;
+      for (int d = 0; d < N; ++d) {
+        const double kd = sig[d] == sig[d] ? sig[d] : -1.0;
+        rank[t] += (kd > kc) || (d < c && kd == kc);
+      }
+    }
   }
 
+  if (!live) return;
   bool flip = false;  // v3 changes sign
   if constexpr (kU) {
     double gs[3][3] = {}, sg[3] = {};  // the sorted columns
 #pragma unroll
-    for (int p = 0; p < 3; ++p) {
+    for (int q = 0; q < 3; ++q) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        if (rank[c] == p) {
-          sg[p] = sig[c];
+        if (rank[c] == q) {
+          sg[q] = sig[c];
 #pragma unroll
-          for (int k = 0; k < 3; ++k) gs[p][k] = g[c][k];
+          for (int k = 0; k < 3; ++k) gs[q][k] = m.g(c)[k];
         }
       }
     }
@@ -201,7 +317,7 @@ svd_small_kernel(const float* __restrict__ a, float* __restrict__ u,
     u3[1] = __dsub_rn(__dmul_rn(u1[2], u2[0]), __dmul_rn(u1[0], u2[2]));
     u3[2] = __dsub_rn(__dmul_rn(u1[0], u2[1]), __dmul_rn(u1[1], u2[0]));
     flip = dot3(gs[2], u3) < 0.0;
-    float* ub = u + static_cast<size_t>(b) * 9;
+    float* ub = u + b * 9;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       ub[k * 3 + 0] = __double2float_rn(u1[k]);
@@ -210,26 +326,34 @@ svd_small_kernel(const float* __restrict__ a, float* __restrict__ u,
     }
   }
 
-  float* sb = s + static_cast<size_t>(b) * N;
-  float* vb = vh + static_cast<size_t>(b) * N * N;
+  float* sb = s + b * N;
+  float* vb = vh + b * N * N;
 #pragma unroll
-  for (int c = 0; c < N; ++c) {
-    sb[rank[c]] = __double2float_rn(sig[c]);
-    const bool neg = flip && rank[c] == N - 1;
+  for (int t = 0; t < kCols; ++t) {
+    const int c = p + t * P;
+    if (c < N) {
+      sb[rank[t]] = __double2float_rn(sig[c]);
+      const bool neg = flip && rank[t] == N - 1;
+      const double* vc = m.v(c);
 #pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const float x = __double2float_rn(v[c][k]);
-      vb[rank[c] * N + k] = neg ? -x : x;
+      for (int k = 0; k < N; ++k) {
+        const float x = __double2float_rn(vc[k]);
+        vb[rank[t] * N + k] = neg ? -x : x;
+      }
     }
   }
 }
 
+// a group of lanes(N) threads a matrix, kThreads a block
 template <int N, bool kU>
 void launch(const void* a, void* u, void* s, void* vh, int batch,
             cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((batch + kThreads - 1) /
-                                                kThreads);
-  svd_small_kernel<N, kU><<<blocks, kThreads, 0, stream>>>(
+  const long long lanes_needed = static_cast<long long>(batch) * lanes(N);
+  const unsigned blocks =
+      static_cast<unsigned>((lanes_needed + kThreads - 1) / kThreads);
+  const size_t shared =
+      in_registers(N) ? 0 : kThreads / lanes(N) * footprint(N) * sizeof(double);
+  svd_small_kernel<N, kU><<<blocks, kThreads, shared, stream>>>(
       static_cast<const float*>(a), static_cast<float*>(u),
       static_cast<float*>(s), static_cast<float*>(vh), batch);
 }

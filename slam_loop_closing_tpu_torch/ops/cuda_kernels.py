@@ -1368,8 +1368,10 @@ def svd_small_plain(a: torch.Tensor, compute_u: bool = False):
 def svd_small(a: torch.Tensor, compute_u: bool = False):
     """:func:`svd_small_plain` of ``a`` [..., n, n] float32, n in
     :data:`SVD_SIZES`: ``(U | None, S, Vh)``, S descending, U only for n =
-    3 (det U = +1). On a CUDA tensor one launch of kernel S (a thread a
-    matrix), bitwise equal to the plain version; no host sync."""
+    3 (det U = +1). On a CUDA tensor one launch of kernel S (a group of n
+    // 2 lanes a matrix), bitwise equal to the plain version; no host
+    sync. A contiguous [B, n, n] input and its outputs are not reshaped
+    (host time: ``probe_svd_forms.py``)."""
     _require(a.dim() >= 2 and a.shape[-1] == a.shape[-2]
              and a.shape[-1] in SVD_SIZES,
              f"a must be [..., n, n] with n in {SVD_SIZES}")
@@ -1378,8 +1380,8 @@ def svd_small(a: torch.Tensor, compute_u: bool = False):
     _require(not compute_u or n == 3, "U for 3 x 3 matrices only")
     if not _on_cuda(a):
         return svd_small_plain(a, compute_u)
-    lead = a.shape[:-2]
-    flat = a.reshape(-1, n, n).contiguous()
+    flat = a if a.dim() == 3 and a.is_contiguous() else a.reshape(
+        -1, n, n).contiguous()
     batch = flat.shape[0]
     _require(batch < 2 ** 31, "at most 2^31 - 1 matrices a launch")
     s = flat.new_empty(batch, n)
@@ -1389,5 +1391,8 @@ def svd_small(a: torch.Tensor, compute_u: bool = False):
         _launch("svd_small", flat.device, flat.data_ptr(),
                 None if u is None else u.data_ptr(), s.data_ptr(),
                 vh.data_ptr(), n, batch)
-    return (None if u is None else u.reshape(*lead, 3, 3),
-            s.reshape(*lead, n), vh.reshape(*lead, n, n))
+    if a.dim() == 3:
+        return u, s, vh
+    lead = a.shape[:-2]
+    return (None if u is None else u.view(*lead, 3, 3), s.view(*lead, n),
+            vh.view(*lead, n, n))

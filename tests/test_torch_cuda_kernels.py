@@ -1121,19 +1121,58 @@ def svd_inputs(n: int, batch: int, seed: int) -> torch.Tensor:
     return torch.from_numpy(a.astype(np.float32))
 
 
+def svd_specials(a: torch.Tensor, seed: int) -> torch.Tensor:
+    """``a`` with every third matrix from the third on replaced by one of
+    the special matrices, in turn: zero, rank one, rank n - 2, a NaN entry,
+    an inf entry, and random ones scaled to 1e-30 and to 1e30."""
+    rng = np.random.default_rng(seed)
+    a = a.numpy().copy()
+    n = a.shape[-1]
+    for k, i in enumerate(range(2, a.shape[0], 3)):
+        kind = k % 7
+        m = rng.normal(size=(n, n))
+        if kind == 0:
+            m[:] = 0.0
+        elif kind == 1:
+            m = np.outer(rng.normal(size=n), rng.normal(size=n))
+        elif kind == 2:
+            m[:, -2:] = m[:, :2] @ rng.normal(size=(2, 2))
+        elif kind == 3:
+            m[rng.integers(n), rng.integers(n)] = np.nan
+        elif kind == 4:
+            m[rng.integers(n), rng.integers(n)] = np.inf * rng.choice([-1, 1])
+        else:
+            m *= 1e-30 if kind == 5 else 1e30
+        a[i] = m
+    return torch.from_numpy(a.astype(np.float32))
+
+
 def _svd_bits(out):
     return [None if x is None else x.contiguous().view(torch.int32)
             for x in out]
 
 
-@pytest.mark.parametrize("batch", [1, 32, 2000, 100000])
+def _same_bits_or_nan(g: torch.Tensor, r: torch.Tensor) -> bool:
+    """The same bits wherever ``r`` holds a number, and a NaN wherever it
+    holds a NaN (a NaN's sign and payload are not part of the result: the
+    CPU and the card make different NaNs)."""
+    g, r = g.cpu(), r.cpu()
+    nan = torch.isnan(r.view(torch.float32))
+    return (torch.equal(torch.isnan(g.view(torch.float32)), nan)
+            and torch.equal(g[~nan], r[~nan]))
+
+
+@pytest.mark.parametrize("batch", [1, 7, 8, 9, 31, 32, 33, 257, 2000,
+                                   100000])
 @pytest.mark.parametrize("n", [3, 4, 9])
 def test_svd_small_kernel_bitwise(dev, n, batch):
     """Kernel S against its plain version on the same matrices: U, S and
-    Vh bitwise. Up to 2,000 matrices the plain version runs on the CPU (so
-    the card's bits are the CPU's); at 100,000 on the card, and its bits
-    there are checked against the CPU's on the first 2,000."""
-    a = svd_inputs(n, batch, seed=n * 1000 + batch)
+    Vh bitwise, at batches that cut its groups, warps and blocks, with the
+    special matrices of ``svd_specials`` among them (a NaN only as a NaN).
+    Up to 2,000 matrices the plain version runs on the CPU (so the card's
+    bits are the CPU's); at 100,000 on the card, and its bits there are
+    checked against the CPU's on the first 2,000."""
+    a = svd_specials(svd_inputs(n, batch, seed=n * 1000 + batch), seed=batch)
     got = _svd_bits(ck.svd_small(a.to(dev), compute_u=n == 3))
     if batch <= 2000:
         ref = _svd_bits(ck.svd_small_plain(a, compute_u=n == 3))
@@ -1141,10 +1180,10 @@ def test_svd_small_kernel_bitwise(dev, n, batch):
         ref = _svd_bits(ck.svd_small_plain(a.to(dev), compute_u=n == 3))
         cpu = _svd_bits(ck.svd_small_plain(a[:2000], compute_u=n == 3))
         for r, c in zip(ref, cpu):
-            assert r is None or torch.equal(r[:2000].cpu(), c)
+            assert r is None or _same_bits_or_nan(r[:2000], c)
     for g, r in zip(got, ref):
         assert (g is None) == (r is None)
-        assert g is None or torch.equal(g.cpu(), r.cpu())
+        assert g is None or _same_bits_or_nan(g, r)
 
 
 def test_svd_small_kernel_batch_invariant_and_rejects(dev):
@@ -1161,6 +1200,30 @@ def test_svd_small_kernel_batch_invariant_and_rejects(dev):
                 torch.zeros(2, 3, 3, dtype=torch.float64, device=dev)):
         with pytest.raises(ValueError):
             ck.svd_small(bad)
+
+
+def test_launch_reads_the_current_stream(dev):
+    """``_launch`` reads the stream through the private
+    ``torch._C._cuda_getCurrentRawStream``: it equals
+    ``torch.cuda.current_stream(i).cuda_stream`` on the default stream and
+    under a ``torch.cuda.Stream`` context, and kernel S launched on a side
+    stream gives the default stream's bits."""
+    i = torch.cuda.current_device()
+    default = torch.cuda.current_stream(i).cuda_stream
+    assert torch._C._cuda_getCurrentRawStream(i) == default
+    a = svd_inputs(9, 257, seed=17).to(dev)
+    ref = _svd_bits(ck.svd_small(a))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        raw = torch._C._cuda_getCurrentRawStream(i)
+        assert raw == torch.cuda.current_stream(i).cuda_stream
+        assert raw == side.cuda_stream != default
+        got = _svd_bits(ck.svd_small(a))
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch._C._cuda_getCurrentRawStream(i) == default
+    for g, r in zip(got, ref):
+        assert g is None or torch.equal(g, r)
 
 
 def test_two_view_geometry_makes_no_host_sync(dev):

@@ -399,3 +399,127 @@ def test_no_linalg_svd_left_on_the_main_paths():
             for i, line in enumerate(p.read_text().splitlines(), 1)
             if "torch.linalg.svd(" in line]
     assert hits == []
+
+
+# --------------------------------------------------------------------------
+# The lane schedule of kernel S (a group of n // 2 lanes a matrix, a lane a
+# pair of each round), on the CPU
+# --------------------------------------------------------------------------
+
+def lane_pairs(n: int) -> list[list[tuple[int, int]]]:
+    """Kernel S's lane schedule by its closed form (``lane_pair`` in
+    csrc/svd_small.cu): for each round, the pair ``(i, j)`` of each of its
+    ``n // 2`` lanes. Lane ``p`` takes the ``p``-th of the round's position
+    pairs ``(k, m - 1 - k)``, in ascending ``k``, that does not hold the
+    padding column ``m - 1`` of an odd ``n``; that column sits at position
+    ``r`` of round ``r >= 1`` and at ``m - 1`` of round 0."""
+    m = n + (n & 1)
+
+    def slot(r, p):
+        return 0 if p == 0 else 1 + (p - 1 - r) % (m - 1)
+
+    out = []
+    for r in range(m - 1):
+        q = m - 1 if r == 0 else r
+        pad = min(q, m - 1 - q)
+        row = []
+        for p in range(n // 2):
+            k = p + 1 if n & 1 and p >= pad else p
+            x, y = slot(r, k), slot(r, m - 1 - k)
+            row.append((min(x, y), max(x, y)))
+        out.append(row)
+    return out
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_lane_pairs_are_the_rounds(n):
+    """Kernel S's closed form gives each round n // 2 lanes, their pairs
+    those of ``svd_rounds`` in the same order: every pair of columns once a
+    sweep, the pairs of a round disjoint (so the lanes of a round may run
+    at once)."""
+    lanes = lane_pairs(n)
+    assert lanes == ck.svd_rounds(n)
+    assert all(len(r) == n // 2 for r in lanes)
+    pairs = [p for r in lanes for p in r]
+    assert sorted(pairs) == [(i, j) for i in range(n)
+                             for j in range(i + 1, n)]
+    for r in lanes:
+        cols = [c for p in r for c in p]
+        assert len(cols) == len(set(cols)) and all(i < j for i, j in r)
+
+
+@pytest.mark.parametrize("n", range(2, 17))
+def test_lane_pairs_closed_form_at_every_size(n):
+    """The closed form (where the padding column of an odd n sits) holds
+    beyond the kernel's sizes too: 2 to 16 columns."""
+    assert lane_pairs(n) == ck.svd_rounds(n)
+
+
+def lane_order_jacobi(a: np.ndarray, rng):
+    """Kernel S's sweeps on one matrix in Python floats, a round at a time
+    as its group of lanes runs them: every lane reads its columns as they
+    stood at the round's start, and the lanes finish in ``rng``'s order.
+    Returns (G and V as ``svd_jacobi_plain``'s ``w`` row by row, sweeps)."""
+    n = a.shape[0]
+    g = [[float(a[r, c]) for r in range(n)] for c in range(n)]
+    v = [[float(r == c) for r in range(n)] for c in range(n)]
+    sweeps = 0
+    for _ in range(ck.SVD_SWEEPS):
+        sweeps += 1
+        rotated = False
+        for pairs in ck.svd_rounds(n):
+            start = {c: (list(g[c]), list(v[c])) for p in pairs for c in p}
+            order = list(range(len(pairs)))
+            rng.shuffle(order)
+            for lane in order:
+                i, j = pairs[lane]
+                (gi, vi), (gj, vj) = start[i], start[j]
+                al, be, ga = gi[0] * gi[0], gj[0] * gj[0], gi[0] * gj[0]
+                for k in range(1, n):
+                    al += gi[k] * gi[k]
+                    be += gj[k] * gj[k]
+                    ga += gi[k] * gj[k]
+                if not ga * ga > ck.SVD_TOL2 * al * be:
+                    continue
+                rotated = True
+                zeta = (be - al) / (ga + ga)
+                t = math.copysign(1.0 / (abs(zeta) + math.sqrt(
+                    1.0 + zeta * zeta)), zeta)
+                c = 1.0 / math.sqrt(1.0 + t * t)
+                s = c * t
+                g[i] = [c * x - s * y for x, y in zip(gi, gj)]
+                g[j] = [s * x + c * y for x, y in zip(gi, gj)]
+                v[i] = [c * x - s * y for x, y in zip(vi, vj)]
+                v[j] = [s * x + c * y for x, y in zip(vi, vj)]
+        if not rotated:
+            break
+    return np.array([gc + vc for gc, vc in zip(g, v)]), sweeps
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_lanes_in_any_order_give_the_plain_bits(n):
+    """Whatever order the lanes of a round finish in, a matrix's G, V and
+    sweeps are ``svd_jacobi_plain``'s, bit for bit: on random,
+    rank-deficient, zero and widely scaled (1e-30 to 1e30) matrices."""
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+
+    @settings(max_examples=20, deadline=None, derandomize=True,
+              database=None)
+    @given(kind=st.sampled_from(("random", "rank-deficient", "zero",
+                                 "scaled")),
+           seed=st.integers(0, 2 ** 31 - 1),
+           scale=st.integers(-30, 30), rng=st.randoms(use_true_random=False))
+    def check(kind, seed, scale, rng):
+        if kind == "scaled":
+            a = make("random", n, 1, seed)[0].astype(np.float64)
+            a = (a / np.abs(a).max() * 10.0 ** scale).astype(np.float32)
+        else:
+            a = make(kind, n, 1, seed)[0]
+        w, sweeps, _ = ck.svd_jacobi_plain(torch.from_numpy(a[None]))
+        got, got_sweeps = lane_order_jacobi(a, rng)
+        assert got_sweeps == int(sweeps[0])
+        np.testing.assert_array_equal(got.view(np.int64),
+                                      w[0].numpy().view(np.int64))
+
+    check()
