@@ -57,8 +57,11 @@ def _build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--resize", type=float, default=None,
                         help="downscale factor, e.g. 0.5 (README speed tip)")
         sp.add_argument("--trace", default=None, metavar="DIR",
-                        help="capture a torch.profiler trace (Chrome trace "
-                             "format) of the run into DIR")
+                        help="capture a torch.profiler trace of the run "
+                             "into DIR: trace.json (Chrome trace format) "
+                             "and spans.json, one record a program span "
+                             "(name, id, parent, request, start_ns, "
+                             "end_ns, host_ms, device_ms, counters)")
         device(sp)
 
     sp = sub.add_parser("extract", help="video -> frame_%%04d.png")

@@ -49,6 +49,7 @@ from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
 from slam_loop_closing_tpu_torch.ops import epipolar, matching, orb, ransac
 from slam_loop_closing_tpu_torch.ops.image import ship_frames
 from slam_loop_closing_tpu_torch.utils import io as io_utils
+from slam_loop_closing_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -100,24 +101,31 @@ class FrameDatabase:
     @classmethod
     def empty(cls, max_frames: int, num_features: int,
               device) -> "FrameDatabase":
-        return cls(
-            packed=torch.zeros((max_frames, num_features, 8),
-                               dtype=torch.int32, device=device),
-            valid=torch.zeros((max_frames, num_features), dtype=torch.bool,
-                              device=device),
-            xy=torch.zeros((max_frames, num_features, 2),
-                           dtype=torch.float32, device=device),
-            nfeat=torch.zeros(max_frames, dtype=torch.int32, device=device))
+        with profiling.annotate("slam.loop.database"):
+            db = cls(
+                packed=torch.zeros((max_frames, num_features, 8),
+                                   dtype=torch.int32, device=device),
+                valid=torch.zeros((max_frames, num_features),
+                                  dtype=torch.bool, device=device),
+                xy=torch.zeros((max_frames, num_features, 2),
+                               dtype=torch.float32, device=device),
+                nfeat=torch.zeros(max_frames, dtype=torch.int32,
+                                  device=device))
+            profiling.count("bytes", sum(
+                t.nbytes for t in (db.packed, db.valid, db.xy, db.nfeat)))
+        return db
 
     def write(self, start: int, packed: torch.Tensor, valid: torch.Tensor,
               xy: torch.Tensor) -> None:
         """Rows ``start .. start + B`` from [B, ...] features, in place; the
         feature counts are reduced on the device (no host read)."""
         end = start + packed.shape[0]
-        self.packed[start:end] = packed
-        self.valid[start:end] = valid
-        self.xy[start:end] = xy
-        self.nfeat[start:end] = torch.sum(valid, dim=1, dtype=torch.int32)
+        with profiling.annotate("slam.loop.db_write"):
+            self.packed[start:end] = packed
+            self.valid[start:end] = valid
+            self.xy[start:end] = xy
+            self.nfeat[start:end] = torch.sum(valid, dim=1,
+                                              dtype=torch.int32)
 
     def row(self, i: int | torch.Tensor):
         """(packed, valid, xy) of frame ``i``, a Python int or a 0-d device
@@ -182,13 +190,16 @@ def _readback(pending: dict) -> dict:
     """Every tensor of ``pending`` ({name: tuple of tensors}) as numpy, with
     ONE wait for the device: the copies are enqueued without blocking (to
     pinned host memory) and the current stream is synchronized once."""
-    host = {k: tuple(t.to("cpu", non_blocking=True) for t in v)
-            for k, v in pending.items()}
-    devices = {t.device for v in pending.values() for t in v
-               if t.device.type == "cuda"}
-    for dev in devices:
-        torch.cuda.current_stream(dev).synchronize()
-    return {k: tuple(t.numpy() for t in v) for k, v in host.items()}
+    with profiling.annotate("slam.loop.readback"):
+        host = {k: tuple(t.to("cpu", non_blocking=True) for t in v)
+                for k, v in pending.items()}
+        devices = {t.device for v in pending.values() for t in v
+                   if t.device.type == "cuda"}
+        for dev in devices:
+            torch.cuda.current_stream(dev).synchronize()
+        profiling.count("bytes", sum(t.nbytes for v in host.values()
+                                     for t in v))
+        return {k: tuple(t.numpy() for t in v) for k, v in host.items()}
 
 
 def videos_loop_scores(videos, cfg: PipelineConfig, device):
@@ -230,9 +241,10 @@ def loops_from_video_scores(counts: np.ndarray, sims: np.ndarray,
                             ) -> list[list[LoopCandidate]]:
     """Host part of the multi-video path: the Version-A loop rule over the
     per-video [V, B, B] score matrices."""
-    return [[LoopCandidate(int(i), int(j), int(c[i, j]), float(s[i, j]))
-             for i, j in _band_hits(c, s, cfg)]
-            for c, s in zip(counts, sims)]
+    with profiling.annotate("slam.loop.rule"):
+        return [[LoopCandidate(int(i), int(j), int(c[i, j]), float(s[i, j]))
+                 for i, j in _band_hits(c, s, cfg)]
+                for c, s in zip(counts, sims)]
 
 
 class LoopClosingSystem:
@@ -245,32 +257,36 @@ class LoopClosingSystem:
 
     def __init__(self, config: PipelineConfig | None = None,
                  max_frames: int = 512, log=print, *, device):
-        if config is None:
-            # Version-A default: the README's assumed intrinsics
-            # fx=fy=800, cx=640, cy=360 (README.md:137)
-            config = dataclasses.replace(PipelineConfig(),
-                                         camera=CameraConfig.assumed())
-        self.config = config
-        self.max_frames = max_frames
-        self.log = log
-        self.device = torch.device(device)
-        cam = config.camera
-        self.K = torch.tensor(cam.K, dtype=torch.float32, device=self.device)
-        # PROSAC motion-coherence gates in normalized units, from the host
-        # config (reading them off self.K would cost a device round trip)
-        focal = 0.5 * (cam.fx + cam.fy)
-        w_est = 2.0 * cam.cx
-        self._radius = max(config.match.motion_radius_frac * w_est,
-                           24.0) / focal
-        self._tau = max(config.match.motion_tau_frac * w_est, 8.0) / focal
-        self._pattern = orb.brief_matrices(config.orb, self.device)
-        self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(0)
-        self.db = FrameDatabase.empty(max_frames, config.orb.num_features,
-                                      self.device)
-        self.frames: list[Frame] = []
-        self.loop_closures: list[LoopCandidate] = []
-        self._frame_ids: list[int] = []
+        with profiling.annotate("slam.loop.init"):
+            if config is None:
+                # Version-A default: the README's assumed intrinsics
+                # fx=fy=800, cx=640, cy=360 (README.md:137)
+                config = dataclasses.replace(PipelineConfig(),
+                                             camera=CameraConfig.assumed())
+            self.config = config
+            self.max_frames = max_frames
+            self.log = log
+            self.device = torch.device(device)
+            cam = config.camera
+            self.K = torch.tensor(cam.K, dtype=torch.float32,
+                                  device=self.device)
+            # PROSAC motion-coherence gates in normalized units, from the
+            # host config (reading them off self.K would cost a device round
+            # trip)
+            focal = 0.5 * (cam.fx + cam.fy)
+            w_est = 2.0 * cam.cx
+            self._radius = max(config.match.motion_radius_frac * w_est,
+                               24.0) / focal
+            self._tau = max(config.match.motion_tau_frac * w_est, 8.0) / focal
+            self._pattern = orb.brief_matrices(config.orb, self.device)
+            self._generator = torch.Generator(device=self.device)
+            self._generator.manual_seed(0)
+            self.db = FrameDatabase.empty(max_frames,
+                                          config.orb.num_features,
+                                          self.device)
+            self.frames: list[Frame] = []
+            self.loop_closures: list[LoopCandidate] = []
+            self._frame_ids: list[int] = []
 
     # -- Version-A API (loop_closing.hpp:34-66) ---------------------------
 
@@ -323,59 +339,64 @@ class LoopClosingSystem:
         loops detected at this frame. Everything the frame needs is enqueued
         on the device, then read back once; only a host/device disagreement
         on the scan's first hit costs a second readback."""
-        idx = len(self.frames)
-        if idx >= self.max_frames:
-            raise ValueError(f"max_frames={self.max_frames} exceeded")
-        fid = idx if frame_id is None else frame_id
-        feats = self.detect_features(image)
-        kp = feats.keypoints
-        self.db.write(idx, feats.descriptors[None], kp.valid[None], kp.xy[None])
-        self._frame_ids.append(fid)
+        with profiling.annotate("slam.loop.process_frame", frames=1):
+            idx = len(self.frames)
+            if idx >= self.max_frames:
+                raise ValueError(f"max_frames={self.max_frames} exceeded")
+            fid = idx if frame_id is None else frame_id
+            feats = self.detect_features(image)
+            kp = feats.keypoints
+            self.db.write(idx, feats.descriptors[None], kp.valid[None],
+                          kp.xy[None])
+            self._frame_ids.append(fid)
 
-        pending = {}
-        if idx > 0:
-            pending["geom"] = self._geometry(idx, idx - 1)
-        counts_d, sims_d = self._scan_scores(idx)
-        pending["scores"] = (counts_d, sims_d)
-        cfg_l = self.config.loop
-        if idx >= cfg_l.min_loop_gap:
-            # speculative re-triangulation (README.md:101-102) against the
-            # first-hit frame, selected on the device. It applies only if the
-            # readback confirms the device saw a hit AND its index equals
-            # the host's first hit (the device compare is float32 tensors,
-            # the host one numpy: at a knife-edge similarity they may
-            # disagree, and the re-triangulation is then redone below). On
-            # a multi-loop frame only the FIRST hit is re-triangulated, as
-            # in the reference's flow.
-            jstar, anyhit = _first_hit(counts_d, sims_d, cfg_l.loop_threshold,
-                                       cfg_l.min_matches)
-            pending["regeom"] = self._geometry(idx, jstar)
-            pending["regeom_target"] = (jstar, anyhit)
-        out = _readback(pending)  # the frame's single readback
+            pending = {}
+            if idx > 0:
+                pending["geom"] = self._geometry(idx, idx - 1)
+            counts_d, sims_d = self._scan_scores(idx)
+            pending["scores"] = (counts_d, sims_d)
+            cfg_l = self.config.loop
+            if idx >= cfg_l.min_loop_gap:
+                # speculative re-triangulation (README.md:101-102) against
+                # the first-hit frame, selected on the device. It applies
+                # only if the readback confirms the device saw a hit AND its
+                # index equals the host's first hit (the device compare is
+                # float32 tensors, the host one numpy: at a knife-edge
+                # similarity they may disagree, and the re-triangulation is
+                # then redone below). On a multi-loop frame only the FIRST
+                # hit is re-triangulated, as in the reference's flow.
+                jstar, anyhit = _first_hit(counts_d, sims_d,
+                                           cfg_l.loop_threshold,
+                                           cfg_l.min_matches)
+                pending["regeom"] = self._geometry(idx, jstar)
+                pending["regeom_target"] = (jstar, anyhit)
+            out = _readback(pending)  # the frame's single readback
 
-        pose = np.eye(4)
-        points3d = np.zeros((0, 3), np.float32)
-        if idx > 0:
-            count, R, t, ok, X, keep = out["geom"]
-            if int(count) >= self.config.ransac.min_points and bool(ok):
-                pose[:3, :3] = R
-                pose[:3, 3] = t
-                points3d = X[keep]
-        self.frames.append(Frame(
-            id=fid, image=image, keypoints_xy=kp.xy,
-            keypoints_valid=kp.valid, descriptors=feats.descriptors,
-            pose=pose, points3d=points3d))
+            pose = np.eye(4)
+            points3d = np.zeros((0, 3), np.float32)
+            if idx > 0:
+                count, R, t, ok, X, keep = out["geom"]
+                if int(count) >= self.config.ransac.min_points and bool(ok):
+                    pose[:3, :3] = R
+                    pose[:3, 3] = t
+                    points3d = X[keep]
+            self.frames.append(Frame(
+                id=fid, image=image, keypoints_xy=kp.xy,
+                keypoints_valid=kp.valid, descriptors=feats.descriptors,
+                pose=pose, points3d=points3d))
 
-        new_loops = self._emit_loops(idx, *out["scores"])
-        if new_loops and "regeom" in out:
-            jstar_h, anyhit_h = out["regeom_target"]
-            first = self._frame_ids.index(new_loops[0].matched_frame_id)
-            if bool(anyhit_h) and int(jstar_h) == first:
-                geom = out["regeom"]
-            else:
-                geom = _readback({"g": self._geometry(idx, first)})["g"]
-            self._keep_points(idx, geom)
-        return new_loops
+            new_loops = self._emit_loops(idx, *out["scores"])
+            if new_loops and "regeom" in out:
+                jstar_h, anyhit_h = out["regeom_target"]
+                first = self._frame_ids.index(
+                    new_loops[0].matched_frame_id)
+                if bool(anyhit_h) and int(jstar_h) == first:
+                    geom = out["regeom"]
+                else:
+                    geom = _readback(
+                        {"g": self._geometry(idx, first)})["g"]
+                self._keep_points(idx, geom)
+            return new_loops
 
     def process_stream(self, frames, frame_ids: list[int] | None = None):
         """Live frame-at-a-time processing with a double-buffered upload:
@@ -468,33 +489,39 @@ class LoopClosingSystem:
         b = frames.shape[0]
         if b > self.max_frames:
             raise ValueError("frame stack exceeds max_frames")
-        ids = list(frame_ids) if frame_ids is not None else list(range(b))
-        feats = orb.detect_and_describe_batch(
-            ship_frames(frames, self.device), self.config.orb, self._pattern)
-        kp = feats.keypoints
-        self.db.write(0, feats.descriptors, kp.valid, kp.xy)
+        with profiling.annotate("slam.loop.process_video", frames=b):
+            ids = (list(frame_ids) if frame_ids is not None
+                   else list(range(b)))
+            feats = orb.detect_and_describe_batch(
+                ship_frames(frames, self.device), self.config.orb,
+                self._pattern)
+            kp = feats.keypoints
+            self.db.write(0, feats.descriptors, kp.valid, kp.xy)
 
-        cfg = self.config.loop
-        new_loops: list[LoopCandidate] = []
-        if b > cfg.min_loop_gap:
-            counts = matching.banded_pair_counts(
-                feats.signed, kp.valid, cfg.min_loop_gap,
-                self.config.match.hamming_filter_scale)
-            nfeat = self.db.nfeat[:b]
-            sims = matching.similarity(counts, nfeat[:, None], nfeat[None, :])
-            counts, sims = _readback({"s": (counts, sims)})["s"]
-            for i, j in _band_hits(counts, sims, self.config):
-                new_loops.append(LoopCandidate(ids[i], ids[j],
-                                               int(counts[i, j]),
-                                               float(sims[i, j])))
-        self.loop_closures.extend(new_loops)
-        self._frame_ids = ids
-        self.frames = [
-            Frame(id=ids[i], image=frames[i], keypoints_xy=kp.xy[i],
-                  keypoints_valid=kp.valid[i],
-                  descriptors=feats.descriptors[i], pose=np.eye(4),
-                  points3d=np.zeros((0, 3), np.float32))
-            for i in range(b)]
+            cfg = self.config.loop
+            new_loops: list[LoopCandidate] = []
+            if b > cfg.min_loop_gap:
+                counts = matching.banded_pair_counts(
+                    feats.signed, kp.valid, cfg.min_loop_gap,
+                    self.config.match.hamming_filter_scale)
+                nfeat = self.db.nfeat[:b]
+                sims = matching.similarity(counts, nfeat[:, None],
+                                           nfeat[None, :])
+                counts, sims = _readback({"s": (counts, sims)})["s"]
+                with profiling.annotate("slam.loop.rule"):
+                    for i, j in _band_hits(counts, sims, self.config):
+                        new_loops.append(LoopCandidate(ids[i], ids[j],
+                                                       int(counts[i, j]),
+                                                       float(sims[i, j])))
+            self.loop_closures.extend(new_loops)
+            self._frame_ids = ids
+            with profiling.annotate("slam.loop.frames"):
+                self.frames = [
+                    Frame(id=ids[i], image=frames[i], keypoints_xy=kp.xy[i],
+                          keypoints_valid=kp.valid[i],
+                          descriptors=feats.descriptors[i], pose=np.eye(4),
+                          points3d=np.zeros((0, 3), np.float32))
+                    for i in range(b)]
         return new_loops
 
     # -- multi-video batched path ------------------------------------------
@@ -509,9 +536,11 @@ class LoopClosingSystem:
         v, b = videos.shape[:2]
         if b <= cfg.loop.min_loop_gap:
             return [[] for _ in range(v)]
-        counts, sims = videos_loop_scores(videos, cfg, device)
-        counts, sims = _readback({"s": (counts, sims)})["s"]
-        return loops_from_video_scores(counts, sims, cfg)
+        with profiling.annotate("slam.loop.process_videos_batched",
+                                frames=v * b):
+            counts, sims = videos_loop_scores(videos, cfg, device)
+            counts, sims = _readback({"s": (counts, sims)})["s"]
+            return loops_from_video_scores(counts, sims, cfg)
 
     # -- internals ---------------------------------------------------------
 
@@ -574,21 +603,23 @@ class LoopClosingSystem:
                     sims: np.ndarray) -> list[LoopCandidate]:
         """Build, record and log the loop candidates of host scan scores."""
         cfg = self.config.loop
-        hits = np.flatnonzero((sims > cfg.loop_threshold)
-                              & (counts >= cfg.min_matches))
-        new_loops = []
-        for j in hits:
-            cand = LoopCandidate(
-                current_frame_id=self._frame_ids[idx],
-                matched_frame_id=self._frame_ids[int(j)],
-                num_matches=int(counts[j]),
-                similarity_score=float(sims[j]))
-            new_loops.append(cand)
-            self.loop_closures.append(cand)
-            self.log(f"Loop closure detected: frame {cand.current_frame_id} "
-                     f"<-> frame {cand.matched_frame_id} "
-                     f"({cand.num_matches} matches, similarity "
-                     f"{cand.similarity_score:.4f})")
+        with profiling.annotate("slam.loop.rule"):
+            hits = np.flatnonzero((sims > cfg.loop_threshold)
+                                  & (counts >= cfg.min_matches))
+            new_loops = []
+            for j in hits:
+                cand = LoopCandidate(
+                    current_frame_id=self._frame_ids[idx],
+                    matched_frame_id=self._frame_ids[int(j)],
+                    num_matches=int(counts[j]),
+                    similarity_score=float(sims[j]))
+                new_loops.append(cand)
+                self.loop_closures.append(cand)
+                self.log(f"Loop closure detected: frame "
+                         f"{cand.current_frame_id} <-> frame "
+                         f"{cand.matched_frame_id} ({cand.num_matches} "
+                         f"matches, similarity "
+                         f"{cand.similarity_score:.4f})")
         return new_loops
 
     def _matched_normalized(self, feats1: orb.OrbFeatures,
@@ -604,7 +635,8 @@ class LoopClosingSystem:
         """Enqueue ``frame``'s host-to-device copy on ``stream`` from pinned
         memory: (device tensor, event recorded after the copy)."""
         host = torch.as_tensor(frame, device="cpu").contiguous().pin_memory()
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), profiling.annotate(
+                "slam.image.upload", bytes=host.nbytes):
             dev = host.to(self.device, non_blocking=True)
         ready = torch.cuda.Event()
         ready.record(stream)

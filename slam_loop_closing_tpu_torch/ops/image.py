@@ -14,13 +14,21 @@ import functools
 import numpy as np
 import torch
 
+from slam_loop_closing_tpu_torch.utils import profiling
+
 
 def ship_frames(frames, device: str | torch.device) -> torch.Tensor:
     """THE frame-shipping contract, keyed on dtype only: uint8 frames move
     to ``device`` raw and convert to [0, 1] float32 there (a quarter of the
     bytes of float32 on the host-to-device link); float frames pass through
-    as float32 unchanged. Accepts numpy arrays or tensors."""
-    fr = torch.as_tensor(frames, device=device)
+    as float32 unchanged. Accepts numpy arrays or tensors. A copy from the
+    host to a device is the span ``slam.image.upload``."""
+    fr = torch.as_tensor(frames)
+    if fr.device.type == "cpu" and torch.device(device).type != "cpu":
+        with profiling.annotate("slam.image.upload", bytes=fr.nbytes):
+            fr = fr.to(device)
+    else:
+        fr = fr.to(device)
     if fr.dtype == torch.uint8:
         # a tensor divisor: CUDA divides by a host scalar as a multiply by
         # its reciprocal, which is 1 ulp off true division for some pixels

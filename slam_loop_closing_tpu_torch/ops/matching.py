@@ -36,6 +36,7 @@ import torch
 
 from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
 from slam_loop_closing_tpu_torch.ops.descriptors import BITS
+from slam_loop_closing_tpu_torch.utils import profiling
 
 BIG = 2 ** 30   # integer distance of a masked (query, target) pair
 BIG_F = 1e30    # float distance of a masked pair, and the ratio test's bound
@@ -131,6 +132,17 @@ def _pad_frames(signed: torch.Tensor, valid: torch.Tensor, block: int):
     return desc_ops.signed_to_packed(signed), valid
 
 
+def _counts_span(videos: int, frames: int, min_gap: int):
+    """The span ``slam.matching.counts`` of a pair-count call over the
+    band ``t <= q - min_gap`` of ``videos`` sequences of ``frames`` frames,
+    with its ``pairs``. The functions that count call each other; the
+    outermost call's span holds the others' (:func:`.profiling.annotate`
+    folds a span into an open one of its name)."""
+    n = max(frames - min_gap, 0)
+    return profiling.annotate("slam.matching.counts",
+                              pairs=videos * n * (n + 1) // 2)
+
+
 def _band_mask(f: int, min_gap: int, device) -> torch.Tensor:
     q = torch.arange(f, device=device)[:, None]
     t = torch.arange(f, device=device)[None, :]
@@ -172,18 +184,21 @@ def banded_pair_counts_videos(signed: torch.Tensor, valid: torch.Tensor,
 
     v, f = signed.shape[:2]
     dev = signed.device
-    packed, vp, qidx, tidx, qb, tb = video_band_tiles(signed, valid, min_gap,
+    with _counts_span(v, f, min_gap):
+        packed, vp, qidx, tidx, qb, tb = video_band_tiles(signed, valid,
+                                                          min_gap, block)
+        if qidx.numel() == 0:
+            return torch.zeros((v, f, f), dtype=torch.int32, device=dev)
+        tiles = cuda_kernels.band_count_tiles(packed, vp, qidx, tidx, block,
+                                              scale)
+        nb = packed.shape[0] // (v * block)
+        full = torch.zeros((v, nb, nb, block, block), dtype=torch.int32,
+                           device=dev)
+        full[:, qb.long(), tb.long()] = tiles.reshape(v, qb.shape[0], block,
                                                       block)
-    if qidx.numel() == 0:
-        return torch.zeros((v, f, f), dtype=torch.int32, device=dev)
-    tiles = cuda_kernels.band_count_tiles(packed, vp, qidx, tidx, block, scale)
-    nb = packed.shape[0] // (v * block)
-    full = torch.zeros((v, nb, nb, block, block), dtype=torch.int32,
-                       device=dev)
-    full[:, qb.long(), tb.long()] = tiles.reshape(v, qb.shape[0], block, block)
-    counts = full.permute(0, 1, 3, 2, 4).reshape(
-        v, nb * block, nb * block)[:, :f, :f]
-    return torch.where(_band_mask(f, min_gap, dev), counts, 0)
+        counts = full.permute(0, 1, 3, 2, 4).reshape(
+            v, nb * block, nb * block)[:, :f, :f]
+        return torch.where(_band_mask(f, min_gap, dev), counts, 0)
 
 
 def banded_pair_counts(signed: torch.Tensor, valid: torch.Tensor, min_gap: int,
@@ -205,8 +220,9 @@ def banded_pair_counts_chunked(signed: torch.Tensor, valid: torch.Tensor,
     package splits the band into many device programs to stay under the
     TPU's watchdog; one kernel launch holds any band's tile list on the
     card (the 4541-frame KITTI band is ~161k 8-frame tiles)."""
-    return banded_pair_counts(signed, valid, min_gap, scale,
-                              block).cpu().numpy()
+    with _counts_span(1, signed.shape[0], min_gap):
+        return banded_pair_counts(signed, valid, min_gap, scale,
+                                  block).cpu().numpy()
 
 
 def _counts_from_d1(d1: torch.Tensor, valid_q: torch.Tensor,
@@ -266,13 +282,14 @@ def dense_pair_counts_chunked(signed: torch.Tensor, valid: torch.Tensor,
     the truncated threshold do (any integer ``scale``)."""
     f = signed.shape[0]
     dev = signed.device
-    packed = desc_ops.signed_to_packed(signed)
-    pq, pt = torch.tril_indices(f, f, offset=-min_gap, device=dev)
-    out = torch.zeros((f, f), dtype=torch.int32, device=dev)
-    for s in range(0, pq.shape[0], pairs_per_call):
-        q, t = pq[s:s + pairs_per_call], pt[s:s + pairs_per_call]
-        out[q, t] = all_pairs_good_counts(packed, valid, q, t, scale)
-    return out.cpu().numpy()
+    with _counts_span(1, f, min_gap):
+        packed = desc_ops.signed_to_packed(signed)
+        pq, pt = torch.tril_indices(f, f, offset=-min_gap, device=dev)
+        out = torch.zeros((f, f), dtype=torch.int32, device=dev)
+        for s in range(0, pq.shape[0], pairs_per_call):
+            q, t = pq[s:s + pairs_per_call], pt[s:s + pairs_per_call]
+            out[q, t] = all_pairs_good_counts(packed, valid, q, t, scale)
+        return out.cpu().numpy()
 
 
 def dense_pair_counts(signed: torch.Tensor, valid: torch.Tensor,
@@ -302,8 +319,9 @@ def dense_pair_counts(signed: torch.Tensor, valid: torch.Tensor,
 def similarity(counts: torch.Tensor, nq: torch.Tensor,
                nt: torch.Tensor) -> torch.Tensor:
     """Version-A similarity score ``matches / min(n1, n2)`` (README.md:121)."""
-    denom = torch.minimum(nq, nt).to(torch.float32)
-    return counts.to(torch.float32) / torch.clamp_min(denom, 1.0)
+    with profiling.annotate("slam.matching.similarity"):
+        denom = torch.minimum(nq, nt).to(torch.float32)
+        return counts.to(torch.float32) / torch.clamp_min(denom, 1.0)
 
 
 # --------------------------------------------------------------------------

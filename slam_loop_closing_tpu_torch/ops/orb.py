@@ -32,6 +32,7 @@ from slam_loop_closing_tpu_torch.config import OrbConfig
 from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
 from slam_loop_closing_tpu_torch.ops import fast as fast_ops
 from slam_loop_closing_tpu_torch.ops import image as image_ops
+from slam_loop_closing_tpu_torch.utils import profiling
 
 PATCH_RADIUS = 15  # patch_size 31 -> radius 15 (cv::ORB HARRIS patchSize)
 PATCH = 32         # patch side; rotated BRIEF offsets clip to the patch
@@ -270,10 +271,13 @@ def brief_matrices(cfg: OrbConfig, device) -> torch.Tensor:
     """[bins, P*P, 256] float32 DIFFERENCE matrices of a config on
     ``device``: bin b's matrix has +1 at pair j's point-B pixel and -1 at its
     point-A pixel (0 where both land on one pixel: bit 0, the strict
-    ``A < B`` comparison's tie)."""
-    return torch.tensor(_brief_matrices_np(
-        cfg.pattern_seed, cfg.descriptor_bits, cfg.patch_size,
-        cfg.brief_bins), device=device)
+    ``A < B`` comparison's tie). Built on the host and copied from pageable
+    memory: the span ``slam.orb.brief_matrices``."""
+    with profiling.annotate("slam.orb.brief_matrices"):
+        host = _brief_matrices_np(cfg.pattern_seed, cfg.descriptor_bits,
+                                  cfg.patch_size, cfg.brief_bins)
+        profiling.count("bytes", host.nbytes)
+        return torch.tensor(host, device=device)
 
 
 def _detect_level(level_imgs: torch.Tensor, level: int, budget: int,
@@ -299,30 +303,41 @@ def detect_and_describe_batch(imgs: torch.Tensor, cfg: OrbConfig = OrbConfig(),
     exactly ``cfg.num_features`` slots per frame. ``pattern`` is the
     :func:`brief_matrices` stack on the frames' device (built if None).
     Orientation and BRIEF run once over the concatenated all-level patch
-    set."""
-    if pattern is None:
-        pattern = brief_matrices(cfg, imgs.device)
-    levels = image_ops.pyramid(imgs, cfg.num_levels, cfg.scale_factor)
-    budgets = _level_budgets(cfg.num_features, cfg.num_levels,
-                             cfg.scale_factor)
-    parts = [_detect_level(lv, lvl, budget, cfg)
-             for lvl, (lv, budget) in enumerate(zip(levels, budgets))
-             if budget > 0]
-    xy, resp, octv, val, patches = (torch.cat(p, dim=1) for p in zip(*parts))
-    b, k = val.shape
-    flat_patches = patches.reshape(b * k, PATCH, PATCH)
-    flat_val = val.reshape(-1)
-    mw = _moment_weights_on(imgs.device)
-    ang = orientation_from_patches(flat_patches, flat_val, mw)
-    bits = brief_from_patches_binned(flat_patches, ang, flat_val, pattern)
-    bits = bits.reshape(b, k, desc_ops.BITS)
-    signed = torch.where(val[..., None], desc_ops.bits_to_signed(bits),
-                         0).to(torch.int8)
-    kps = Keypoints(xy=xy, response=resp, angle=ang.reshape(b, k),
-                    octave=octv, valid=val)
-    return OrbFeatures(keypoints=kps,
-                       descriptors=desc_ops.bits_to_packed(bits),
-                       signed=signed)
+    set. Spans: ``slam.orb.frontend`` around the call, inside it
+    ``slam.orb.pyramid``, ``slam.orb.detect`` (every level's FAST, NMS,
+    blur, grid top-K and patches) and ``slam.orb.describe`` (orientation,
+    BRIEF, the signed and packed descriptors)."""
+    with profiling.annotate("slam.orb.frontend", frames=imgs.shape[0]):
+        if pattern is None:
+            pattern = brief_matrices(cfg, imgs.device)
+        with profiling.annotate("slam.orb.pyramid"):
+            levels = image_ops.pyramid(imgs, cfg.num_levels,
+                                       cfg.scale_factor)
+        budgets = _level_budgets(cfg.num_features, cfg.num_levels,
+                                 cfg.scale_factor)
+        with profiling.annotate("slam.orb.detect"):
+            parts = [_detect_level(lv, lvl, budget, cfg)
+                     for lvl, (lv, budget) in enumerate(zip(levels, budgets))
+                     if budget > 0]
+            xy, resp, octv, val, patches = (torch.cat(p, dim=1)
+                                            for p in zip(*parts))
+        with profiling.annotate("slam.orb.describe"):
+            b, k = val.shape
+            flat_patches = patches.reshape(b * k, PATCH, PATCH)
+            flat_val = val.reshape(-1)
+            mw = _moment_weights_on(imgs.device)
+            ang = orientation_from_patches(flat_patches, flat_val, mw)
+            bits = brief_from_patches_binned(flat_patches, ang, flat_val,
+                                             pattern)
+            bits = bits.reshape(b, k, desc_ops.BITS)
+            signed = torch.where(val[..., None],
+                                 desc_ops.bits_to_signed(bits),
+                                 0).to(torch.int8)
+            descriptors = desc_ops.bits_to_packed(bits)
+        kps = Keypoints(xy=xy, response=resp, angle=ang.reshape(b, k),
+                        octave=octv, valid=val)
+        return OrbFeatures(keypoints=kps, descriptors=descriptors,
+                           signed=signed)
 
 
 def detect_and_describe(img: torch.Tensor, cfg: OrbConfig = OrbConfig(),

@@ -4,6 +4,7 @@ the default-mode fallback, config overrides, ``loop`` in both modes and
 ``loop_closures.txt`` line for line; timing lines compared by their words),
 and the ``calibrate`` entry point."""
 
+import json
 import re
 
 import numpy as np
@@ -144,7 +145,8 @@ class TestLoopCli:
 
     def test_all_mode_resize_and_trace(self, frames_dir, tmp_path, capsys):
         """``all`` with --frames goes straight to the loop stage; --resize
-        halves the frames; --trace writes a Chrome trace."""
+        halves the frames; --trace writes a Chrome trace and the
+        program's spans: the system's set-up, then the batched call."""
         rc = tcli.main(["all", "--frames", str(frames_dir), "--resize", "0.5",
                         "--max-frames", "6", "--num-features", "100",
                         "--frame-skip", "2", "--min-gap", "2",
@@ -158,6 +160,11 @@ class TestLoopCli:
         assert (tmp_path / "data" / "loop_closing_results"
                 / "loop_closures.txt").exists()
         assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+        spans = json.loads((tmp_path / "trace" / "spans.json").read_text())
+        roots = [r["name"] for r in spans if r["parent"] is None]
+        assert roots == ["slam.loop.init", "slam.loop.process_video"]
+        assert {"slam.orb.detect", "slam.loop.readback",
+                "slam.loop.frames"} <= {r["name"] for r in spans}
 
     def test_module_entry_point(self, tmp_path):
         import subprocess
