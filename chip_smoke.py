@@ -15,13 +15,14 @@ each printed with its result and seconds on its own line:
    1080p frame (the live path), on a 540x960 crop's levels (ORB SfM and
    multi-video) and on frames narrower than its 64 x 16 tile, with the
    share of pixels that pass its compass pre-test; kernel J (one pyramid
-   level from the level before, both outputs) and kernel M (the keypoints'
-   orientation from their patches) on the front-end's levels and keypoints
-   of 8 1080p frames and of one (the live path), with A and B on the same
-   levels and keypoints, J beside the dense cuBLAS products it replaced
-   (their differing pixels counted) and M beside the moment product;
-   kernel D also with its target split forced to 1 and 16, beside a bf16
-   +-1 matmul and max on operands unpacked beforehand; kernel E also on
+   level from the level before, both outputs), kernel M (the keypoints'
+   orientation from their patches) and kernel Q (their descriptors) on the
+   front-end's levels and keypoints of 8 1080p frames and of one (the live
+   path), with A and B on the same levels and keypoints, J beside the dense
+   cuBLAS products it replaced (their differing pixels counted), M beside
+   the moment product and Q beside the 30 bf16 BRIEF products; kernel D
+   also with its target split forced to 1 and 16, beside a bf16 +-1
+   matmul and max on operands unpacked beforehand; kernel E also on
    single sets of 4,000 and 1,531 matches (its target rows split over
    blocks), with profiler device times beside the CUDA-event ones; kernel
    S (the small Jacobi SVD of the two-view geometry) on the matrices that
@@ -277,6 +278,8 @@ REPLACES = {"fast_score_nms_blur": f"{PKG}:736",     # _fast_kernel
             # orientation_from_patches (the moment sums)
             "pyramid_level": "slam_loop_closing_tpu/ops/image.py:92",
             "orient_moments": "slam_loop_closing_tpu/ops/orb.py:176",
+            # the BRIEF bins' products of brief_from_patches_binned
+            "brief_bits": "slam_loop_closing_tpu/ops/orb.py:262",
             # the SIFT octave halving (jax.image.resize's matmuls) and the
             # scatter-adds (.at[].add) of BA's and PGO's normal equations
             "resize_f32": "slam_loop_closing_tpu/ops/sift.py:456",
@@ -298,10 +301,11 @@ SOURCES = {"fast_score_nms_blur": "fast_score_nms_blur.cu",
            "pyramid_level": "pyramid_level.cu",
            "resize_f32": "pyramid_level.cu",
            "orient_moments": "orient_moments.cu",
+           "brief_bits": "brief_bits.cu",
            "segment_sum": "segment_sum.cu",
            "svd_small": "svd_small.cu"}
 ORB_KERNELS = ("pyramid_level", "fast_score_nms_blur", "extract_patches",
-               "orient_moments")   # the ORB front-end's
+               "orient_moments", "brief_bits")   # the ORB front-end's
 VIDEO_KERNELS = ORB_KERNELS + ("band_count_tiles",)
 STREAM_KERNELS = ORB_KERNELS + ("pair_counts", "hamming_nn", "motion_support",
                                  "svd_small")
@@ -460,6 +464,7 @@ KERNEL_NAMES = {"fast_score_nms_blur_kernel": "fast_score_nms_blur",
                 "pyramid_level_kernel": "pyramid_level",
                 "resize_f32_kernel": "resize_f32",
                 "orient_moments_kernel": "orient_moments",
+                "brief_bits_kernel": "brief_bits",
                 "segment_sum_kernel": "segment_sum",
                 "svd_small_kernel": "svd_small"}
 def kernel_device_ms(prof, path: str, device_ms: dict) -> None:
@@ -2263,23 +2268,27 @@ def check_sift_agreement(dev) -> None:
 
 
 def check_front_end_kernels(name: str, imgs, cfg, reps: int = 0) -> dict:
-    """Kernels J, A, B and M against their plain versions at the shapes
+    """Kernels J, A, B, M and Q against their plain versions at the shapes
     ``orb.detect_and_describe_batch`` gives them for one batch ``imgs``
     [B, H, W] float32 under the ORB config ``cfg``: each pyramid level from
     the level before through kernel J (the bfloat16 and the float32 level),
     every level of the whole batch through kernel A, then that level's own
     keypoints (its share of the feature budget) on its blurred frames
     through kernel B, and the orientation of all the batch's keypoints from
-    their patches through kernel M. Bitwise. The plain FAST runs over the
-    batch 10 frames at a time, which bounds its memory and changes nothing
-    per frame. With ``reps``, returns J's and M's records: CUDA-event times
-    of the kernels, of their plain versions and of the cuBLAS forms they
-    replaced (J: the dense float32 products of ``image.resize_bilinear``
-    at bfloat16, the first level's rounding of the frames included; M: the
-    [K, 1024] @ [1024, 2] moment product), and their bounds."""
+    their patches through kernel M, and their descriptors through kernel
+    Q (also against the bf16 products Q replaced). Bitwise. The plain FAST
+    runs over the batch 10 frames at a time, which bounds its memory and
+    changes nothing per frame. With ``reps``, returns J's, M's and Q's
+    records: CUDA-event times of the kernels, of their plain versions and
+    of the cuBLAS forms they replaced (J: the dense float32 products of
+    ``image.resize_bilinear`` at bfloat16, the first level's rounding of
+    the frames included; M: the [K, 1024] @ [1024, 2] moment product; Q:
+    the 30 bf16 BRIEF products, their selects and the packing), and their
+    bounds."""
     import torch
 
     from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
+    from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
     from slam_loop_closing_tpu_torch.ops import fast as fast_ops
     from slam_loop_closing_tpu_torch.ops import image as image_ops
     from slam_loop_closing_tpu_torch.ops import orb
@@ -2347,11 +2356,25 @@ def check_front_end_kernels(name: str, imgs, cfg, reps: int = 0) -> dict:
     ang = ck.orient_moments(flat, val, mw)
     check_bitwise(f"kernel M ({name}, {flat.shape[0]} keypoints)", [ang],
                   [ck.orient_moments_plain(flat, val, mw)])
-    phase(f"kernels J, A, B and M, {name}", t0,
+    pairs = orb.brief_pairs(cfg, flat.device)
+    D = orb.brief_matrices(cfg, flat.device)
+    q = ck.brief_bits(flat, ang, val, pairs)
+    check_bitwise(f"kernel Q ({name}, {flat.shape[0]} keypoints)", q,
+                  ck.brief_bits_plain(flat, ang, val, pairs))
+
+    def products():
+        bits = orb.brief_from_patches_binned(flat, ang, val, D)
+        return (desc_ops.bits_to_packed(bits),
+                torch.where(val[:, None], desc_ops.bits_to_signed(bits),
+                            0).to(torch.int8))
+
+    check_bitwise(f"kernel Q against the bf16 products ({name})", q,
+                  products())
+    phase(f"kernels J, A, B, M and Q, {name}", t0,
           f"one front-end batch of {imgs.shape[0]} frames, levels "
           f"{[tuple(lv.shape[1:]) for lv in levels]} with {budgets} keypoints "
-          f"a frame: levels, score, blur, patches and "
-          f"{flat.shape[0]} angles bitwise")
+          f"a frame: levels, score, blur, patches, "
+          f"{flat.shape[0]} angles and descriptors bitwise")
     if not reps:
         return {}
     k = flat.shape[0]
@@ -2376,6 +2399,19 @@ def check_front_end_kernels(name: str, imgs, cfg, reps: int = 0) -> dict:
         library_ms=cuda_ms(lambda: flat.reshape(k, -1) @ mw, reps),
         library="the [K, 1024] @ [1024, 2] float32 cuBLAS product it "
                 "replaced (without the atan2)")
+    records["brief_bits"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: ck.brief_bits(flat, ang, val, pairs), reps),
+        plain_ms=cuda_ms(lambda: ck.brief_bits_plain(flat, ang, val, pairs),
+                         3),
+        # the patches, angles and validity read, the packed and signed
+        # descriptors written
+        **bound(k * (orb.PATCH * orb.PATCH * 4 + 4 + 1 + 32 + 256), 0.0,
+                "int8"))
+    records["brief_bits"].update(
+        library_ms=cuda_ms(products, reps),
+        library="the 30 bf16 cuBLAS products, 30 selects, bits_to_packed "
+                "and bits_to_signed it replaced")
     print(f"  kernel J, 3 levels: {j['ms']:.4f} ms (device "
           f"{j['device_ms']:.4f} ms), plain {j['plain_ms']:.3f} "
           f"ms, dense products {j['library_ms']:.3f} ms, bound "
@@ -2385,7 +2421,11 @@ def check_front_end_kernels(name: str, imgs, cfg, reps: int = 0) -> dict:
           f"{records['orient_moments']['plain_ms']:.3f} ms, cuBLAS product "
           f"{records['orient_moments']['library_ms']:.4f} ms, bound "
           f"{records['orient_moments']['bound_ms']:.4f} ms "
-          f"({records['orient_moments']['bound_by']}); the dense products "
+          f"({records['orient_moments']['bound_by']}); kernel Q: "
+          f"{records['brief_bits']['ms']:.4f} ms, plain "
+          f"{records['brief_bits']['plain_ms']:.3f} ms, products "
+          f"{records['brief_bits']['library_ms']:.4f} ms, bound "
+          f"{records['brief_bits']['bound_ms']:.4f} ms; the dense products "
           f"differ from J's fixed order at {j['dense_px']} pixels of the "
           f"batch's levels", flush=True)
     return records

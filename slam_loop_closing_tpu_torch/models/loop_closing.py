@@ -213,7 +213,7 @@ def videos_loop_scores(videos, cfg: PipelineConfig, device):
     ``test_process_videos_batched_on_card_equals_per_video``. The bands of
     all videos then go through ONE launch of the band-count kernel
     (:func:`..ops.matching.banded_pair_counts_videos`)."""
-    pattern = orb.brief_matrices(cfg.orb, device)
+    pattern = orb.brief_pairs(cfg.orb, device)
     feats = [orb.detect_and_describe_batch(ship_frames(video, device),
                                            cfg.orb, pattern)
              for video in videos]
@@ -278,7 +278,7 @@ class LoopClosingSystem:
             self._radius = max(config.match.motion_radius_frac * w_est,
                                24.0) / focal
             self._tau = max(config.match.motion_tau_frac * w_est, 8.0) / focal
-            self._pattern = orb.brief_matrices(config.orb, self.device)
+            self._pattern = orb.brief_pairs(config.orb, self.device)
             self._generator = torch.Generator(device=self.device)
             self._generator.manual_seed(0)
             self.db = FrameDatabase.empty(max_frames,

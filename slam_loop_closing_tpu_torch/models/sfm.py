@@ -534,7 +534,7 @@ class SfMPipeline:
         self.K = torch.tensor(cam.K, dtype=torch.float32, device=self.device)
         self.dist = torch.tensor(cam.dist_coeffs, dtype=torch.float32,
                                  device=self.device)
-        self._pattern = (orb.brief_matrices(self.config.orb, self.device)
+        self._pattern = (orb.brief_pairs(self.config.orb, self.device)
                          if self.config.detector == "orb" else None)
 
     # -- front-end ---------------------------------------------------------

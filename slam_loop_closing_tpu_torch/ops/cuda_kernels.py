@@ -30,6 +30,7 @@ gauss_stack_resp       csrc/gauss_stack_resp.cu      ``_gauss_stack_resp_kernel`
 pyramid_level          csrc/pyramid_level.cu         none: XLA's resize matmuls
 resize_f32             csrc/pyramid_level.cu         none: XLA's resize matmuls
 orient_moments         csrc/orient_moments.cu        none: XLA's moment sums
+brief_bits             csrc/brief_bits.cu            none: XLA's BRIEF products
 segment_sums,          csrc/segment_sum.cu           none: XLA's scatter-adds
 segment_sum
 svd_small              csrc/svd_small.cu             none: XLA's small SVDs
@@ -38,7 +39,10 @@ svd_small              csrc/svd_small.cu             none: XLA's small SVDs
 ``pyramid_level`` (J), its float32 mode ``resize_f32`` (the SIFT octave
 halving) and ``orient_moments`` (M) replace work that the JAX package leaves
 to XLA and the port first ran as cuBLAS products: they sum in a fixed order,
-so the front-end's bits do not depend on its batch size. ``segment_sum``
+so the front-end's bits do not depend on its batch size. ``brief_bits``
+(Q) replaces the 30 bf16 cuBLAS products of the BRIEF bins, the selects
+among their outputs and the packing: it compares each keypoint's 256 pixel
+pairs of its bin and writes both descriptor layouts. ``segment_sum``
 (N) replaces the float atomics of CUDA's ``index_add_`` in the normal
 equations of BA and PGO: its sums run in a fixed order, so the backend
 gives the same bits at every run. ``svd_small`` (S) replaces
@@ -75,8 +79,8 @@ LAUNCHES = {"fast_score_nms_blur": 0, "extract_patches": 0,
             "band_count_tiles": 0, "pair_counts": 0, "hamming_nn": 0,
             "hamming_knn2": 0, "motion_support": 0, "l2_knn2": 0,
             "gauss_stack_resp": 0, "hamming_d1": 0, "pyramid_level": 0,
-            "resize_f32": 0, "orient_moments": 0, "segment_sum": 0,
-            "svd_small": 0}
+            "resize_f32": 0, "orient_moments": 0, "brief_bits": 0,
+            "segment_sum": 0, "svd_small": 0}
 
 
 def reset_launch_counts() -> None:
@@ -1069,6 +1073,72 @@ def orient_moments(patches: torch.Tensor, valid: torch.Tensor,
             valid.data_ptr(), weights.data_ptr(), angle.data_ptr(),
             patches.shape[0])
     return angle
+
+
+# --------------------------------------------------------------------------
+# Q: rotated BRIEF at each keypoint's bin, both descriptor layouts
+# --------------------------------------------------------------------------
+
+def brief_bits_plain(patches: torch.Tensor, angle: torch.Tensor,
+                     valid: torch.Tensor, pairs: torch.Tensor):
+    """([K, 8] int32 packed words, [K, 256] int8 +-1) of ``[K, P, P]``
+    float32 patches: each keypoint's bin (:func:`..orb.brief_bins` over
+    ``pairs.shape[0]`` bins), bit j ``bf16(p[B]) > bf16(p[A])`` at the
+    bin's pair j of ``pairs`` [bins, 256, 2] (flat indices), then
+    :func:`..descriptors.bits_to_packed` and
+    :func:`..descriptors.bits_to_signed`; zeros in both for invalid rows.
+    The gather and the comparison are exact, so this is
+    :func:`..orb.brief_from_patches_binned`'s bits wherever its bf16
+    product keeps the difference's sign: everywhere on the card; on a CPU
+    whose bf16 product flushes subnormals, everywhere but pairs whose
+    difference lies below bf16's smallest normal."""
+    k = patches.shape[0]
+    flat = patches.reshape(k, -1).to(torch.bfloat16)
+    idx = pairs.to(torch.int64)[orb.brief_bins(angle, pairs.shape[0])]
+    s = torch.gather(flat, 1, idx.reshape(k, -1)).reshape(k, -1, 2)
+    bits = (valid[:, None] & (s[..., 1] > s[..., 0])).to(torch.uint8)
+    signed = torch.where(valid[:, None], desc_ops.bits_to_signed(bits), 0)
+    return desc_ops.bits_to_packed(bits), signed.to(torch.int8)
+
+
+def brief_bits(patches: torch.Tensor, angle: torch.Tensor,
+               valid: torch.Tensor, pairs: torch.Tensor):
+    """:func:`brief_bits_plain` of ``[K, 32, 32]`` patches; on CUDA tensors
+    one launch of kernel Q (a warp a keypoint: the patch staged in shared
+    memory as bf16, a ballot a packed word). Bitwise equal to the plain
+    version. Every index of ``pairs`` must be below 1,024."""
+    k = patches.shape[0]
+    _require(patches.dim() == 3 and patches.shape[1:] == (orb.PATCH,
+                                                          orb.PATCH)
+             and patches.dtype == torch.float32,
+             "patches must be [K, 32, 32] float32")
+    _require(angle.shape == (k,) and angle.dtype == torch.float32,
+             "angle must be [K] float32")
+    _require(valid.shape == (k,) and valid.dtype == torch.bool,
+             "valid must be [K] bool")
+    _require(pairs.dim() == 3 and pairs.shape[0] > 0
+             and pairs.shape[1:] == (desc_ops.BITS, 2)
+             and pairs.dtype == torch.int16,
+             "pairs must be [bins, 256, 2] int16")
+    if not _on_cuda(patches, angle, valid, pairs):
+        return brief_bits_plain(patches, angle, valid, pairs)
+    patches = patches.contiguous()
+    angle = angle.contiguous()
+    pairs = pairs.contiguous()
+    _require(patches.data_ptr() % 16 == 0 and pairs.data_ptr() % 4 == 0,
+             "patches must be 16-byte and pairs 4-byte aligned")
+    # converted copies stay bound until the launch returns (see hamming_nn)
+    valid = valid.contiguous().view(torch.uint8)
+    packed = torch.empty((k, desc_ops.WORDS), dtype=torch.int32,
+                         device=patches.device)
+    signed = torch.empty((k, desc_ops.BITS), dtype=torch.int8,
+                         device=patches.device)
+    bins = pairs.shape[0]
+    _launch("brief_bits", patches.device, patches.data_ptr(),
+            angle.data_ptr(), valid.data_ptr(), pairs.data_ptr(),
+            packed.data_ptr(), signed.data_ptr(), k, bins,
+            2.0 * math.pi / bins)
+    return packed, signed
 
 
 # --------------------------------------------------------------------------

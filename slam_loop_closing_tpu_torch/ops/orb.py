@@ -11,9 +11,13 @@ written out):
    (:func:`extract_patches_fast`, a CUDA kernel on the card);
 3. the intensity-centroid angle from the moments summed in a fixed order
    (:func:`orientation_from_patches`, a CUDA kernel on the card);
-4. rotated BRIEF with the rotation quantized to 30 bins: per bin one
-   product of the bf16 patches with the bin's +-1 difference matrix; a bit
-   is ``sign(bf16(B) - bf16(A))`` (:func:`brief_from_patches_binned`).
+4. rotated BRIEF with the rotation quantized to 30 bins: a bit is
+   ``bf16(B) > bf16(A)`` at the pixel pair of the keypoint's bin
+   (:func:`brief_pairs`), written as the packed and the signed descriptors
+   (:func:`..cuda_kernels.brief_bits`, a CUDA kernel on the card);
+   :func:`brief_from_patches_binned`, the JAX package's form (per bin one
+   product of the bf16 patches with the bin's +-1 difference matrix, the
+   sign of ``bf16(B) - bf16(A)``), is its oracle.
 
 The numpy builders (pattern, moment weights, bin matrices, level budgets)
 are copies of the JAX package's, held bitwise equal by the tests.
@@ -201,13 +205,12 @@ def _moment_weights_on(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_orientation_moment_weights()).to(device)
 
 
-def make_brief_bin_matrices(pattern: np.ndarray, num_bins: int = 30,
-                            patch: int = PATCH) -> np.ndarray:
-    """[num_bins, patch*patch, 512] one-hot sampling matrices: bin b's matrix
-    maps a flattened patch to the 512 nearest-pixel samples of the pattern
-    rotated by ``2*pi*b/num_bins``. Columns [0:256] are point A of each
-    pair, [256:512] point B; rotated positions clip to the patch."""
-    out = np.zeros((num_bins, patch * patch, 512), np.float32)
+def _brief_bin_pixels(pattern: np.ndarray, num_bins: int,
+                      patch: int) -> np.ndarray:
+    """[num_bins, 256, 2] flat patch indices of the nearest pixels of each
+    pair's points A and B, the pattern rotated by ``2*pi*b/num_bins`` for
+    bin b; rotated positions clip to the patch."""
+    out = np.empty((num_bins, pattern.shape[0], 2), np.int64)
     for b in range(num_bins):
         th = 2.0 * np.pi * b / num_bins
         c, s = np.cos(th), np.sin(th)
@@ -216,30 +219,51 @@ def make_brief_bin_matrices(pattern: np.ndarray, num_bins: int = 30,
         pos = pts + PATCH_CENTER
         xi = np.clip(np.round(pos[..., 0]).astype(int), 0, patch - 1)
         yi = np.clip(np.round(pos[..., 1]).astype(int), 0, patch - 1)
-        flat_idx = yi * patch + xi
-        cols = np.arange(256)
+        out[b] = yi * patch + xi
+    return out
+
+
+def make_brief_bin_matrices(pattern: np.ndarray, num_bins: int = 30,
+                            patch: int = PATCH) -> np.ndarray:
+    """[num_bins, patch*patch, 512] one-hot sampling matrices: bin b's matrix
+    maps a flattened patch to the 512 nearest-pixel samples of the pattern
+    rotated by ``2*pi*b/num_bins``. Columns [0:256] are point A of each
+    pair, [256:512] point B; rotated positions clip to the patch."""
+    out = np.zeros((num_bins, patch * patch, 512), np.float32)
+    cols = np.arange(256)
+    for b, flat_idx in enumerate(_brief_bin_pixels(pattern, num_bins, patch)):
         out[b, flat_idx[:, 0], cols] = 1.0
         out[b, flat_idx[:, 1], cols + 256] = 1.0
     return out
+
+
+def brief_bins(angle: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """[K] int32 rotation bins of ``angle`` [K] float32 radians:
+    ``round(angle / step) mod num_bins``, step the float32 ``2 pi /
+    num_bins``, the division correctly rounded, round half to even, floor
+    modulo (kernel Q computes it the same way)."""
+    # a step tensor (not a Python scalar): CUDA divides by a host scalar as
+    # a multiply by its reciprocal, which can round differently
+    step = torch.full((), 2.0 * math.pi / num_bins, dtype=torch.float32,
+                      device=angle.device)
+    return torch.remainder(torch.round(angle / step).to(torch.int32),
+                           num_bins)
 
 
 def brief_from_patches_binned(patches: torch.Tensor, angle: torch.Tensor,
                               valid: torch.Tensor,
                               D: torch.Tensor) -> torch.Tensor:
     """Rotated-BRIEF bits of ``[K, P, P]`` patches: [K, 256] uint8. Each
-    keypoint's angle picks a bin, ``round(angle / step) mod bins`` (round
-    half to even, floor modulo); per bin, one bf16 product of the patches
-    with the bin's difference matrix ``D[b]`` (+1 at point B, -1 at point A)
-    gives ``bf16(B) - bf16(A)`` (rounded to bf16, which keeps its sign), and
-    the bin mask selects among the OUTPUTS. ``bit = diff > 0``."""
+    keypoint's angle picks a bin (:func:`brief_bins`); per bin, one bf16
+    product of the patches with the bin's difference matrix ``D[b]`` (+1 at
+    point B, -1 at point A) gives ``bf16(B) - bf16(A)`` (rounded to bf16,
+    which keeps its sign), and the bin mask selects among the OUTPUTS.
+    ``bit = diff > 0``. The JAX package's form, kept as the oracle of
+    :func:`..cuda_kernels.brief_bits`."""
     k = patches.shape[0]
     num_bins = D.shape[0]
     flat = patches.reshape(k, -1).to(torch.bfloat16)
-    # a step tensor (not a Python scalar): CUDA divides by a host scalar as
-    # a multiply by its reciprocal, which can round differently
-    step = torch.full((), 2.0 * math.pi / num_bins, dtype=torch.float32,
-                      device=angle.device)
-    bins = torch.remainder(torch.round(angle / step).to(torch.int32), num_bins)
+    bins = brief_bins(angle, num_bins)
     diff = torch.zeros((k, D.shape[2]), dtype=torch.bfloat16,
                        device=patches.device)
     for b in range(num_bins):
@@ -272,12 +296,48 @@ def brief_matrices(cfg: OrbConfig, device) -> torch.Tensor:
     ``device``: bin b's matrix has +1 at pair j's point-B pixel and -1 at its
     point-A pixel (0 where both land on one pixel: bit 0, the strict
     ``A < B`` comparison's tie). Built on the host and copied from pageable
-    memory: the span ``slam.orb.brief_matrices``."""
+    memory: the span ``slam.orb.brief_matrices``. The operand of
+    :func:`brief_from_patches_binned`; the front-end takes the pair table
+    (:func:`brief_pairs`)."""
     with profiling.annotate("slam.orb.brief_matrices"):
         host = _brief_matrices_np(cfg.pattern_seed, cfg.descriptor_bits,
                                   cfg.patch_size, cfg.brief_bins)
         profiling.count("bytes", host.nbytes)
         return torch.tensor(host, device=device)
+
+
+@functools.cache
+def _brief_pairs_np(seed: int, bits: int, patch_size: int,
+                    bins: int) -> np.ndarray:
+    idx = _brief_bin_pixels(make_pattern(seed, bits, patch_size), bins,
+                            PATCH)
+    idx[idx[..., 0] == idx[..., 1]] = 0
+    return idx.astype(np.int16)
+
+
+def brief_pairs(cfg: OrbConfig, device) -> torch.Tensor:
+    """[bins, 256, 2] int16 pair table of a config on ``device``: bin b's
+    flat patch indices (A, B) of pair j, the pixels of
+    :func:`brief_matrices`' -1 and +1 (both 0 where A and B land on one
+    pixel, as the all-zero column: bit 0). Built on the host (once a
+    config) and copied, 30 KB at 30 bins, under the span of the BRIEF
+    tables, ``slam.orb.brief_matrices``."""
+    with profiling.annotate("slam.orb.brief_matrices"):
+        host = _brief_pairs_np(cfg.pattern_seed, cfg.descriptor_bits,
+                               cfg.patch_size, cfg.brief_bins)
+        profiling.count("bytes", host.nbytes)
+        return torch.tensor(host, device=device)
+
+
+def brief_pairs_from_matrices(D: torch.Tensor) -> torch.Tensor:
+    """The pair table of :func:`brief_pairs` read off a ``[bins, P*P, 256]``
+    difference stack ``D`` (:func:`brief_matrices`) on its device: the row
+    of each column's +1 (B) and -1 (A), both 0 in an all-zero column."""
+    b = torch.argmax(D, dim=1)
+    a = torch.argmin(D, dim=1)
+    tie = torch.gather(D, 1, b[:, None]).squeeze(1) <= 0
+    pairs = torch.stack([a, b], dim=-1).masked_fill(tie[..., None], 0)
+    return pairs.to(torch.int16)
 
 
 def _detect_level(level_imgs: torch.Tensor, level: int, budget: int,
@@ -300,16 +360,20 @@ def detect_and_describe_batch(imgs: torch.Tensor, cfg: OrbConfig = OrbConfig(),
                               pattern: torch.Tensor | None = None
                               ) -> OrbFeatures:
     """Full ORB on ``[B, H, W]`` float32 frames -> fixed-size features with
-    exactly ``cfg.num_features`` slots per frame. ``pattern`` is the
-    :func:`brief_matrices` stack on the frames' device (built if None).
-    Orientation and BRIEF run once over the concatenated all-level patch
-    set. Spans: ``slam.orb.frontend`` around the call, inside it
-    ``slam.orb.pyramid``, ``slam.orb.detect`` (every level's FAST, NMS,
-    blur, grid top-K and patches) and ``slam.orb.describe`` (orientation,
-    BRIEF, the signed and packed descriptors)."""
+    exactly ``cfg.num_features`` slots per frame. ``pattern`` is on the
+    frames' device: the :func:`brief_pairs` table, or a
+    :func:`brief_matrices` stack, read into its table
+    (:func:`brief_pairs_from_matrices`); built if None. Orientation and
+    BRIEF run once over the concatenated all-level patch set. Spans:
+    ``slam.orb.frontend`` around the call, inside it ``slam.orb.pyramid``,
+    ``slam.orb.detect`` (every level's FAST, NMS, blur, grid top-K and
+    patches) and ``slam.orb.describe`` (orientation, BRIEF's signed and
+    packed descriptors; counter ``keypoints``, the rows described)."""
+    from slam_loop_closing_tpu_torch.ops import cuda_kernels
+
     with profiling.annotate("slam.orb.frontend", frames=imgs.shape[0]):
         if pattern is None:
-            pattern = brief_matrices(cfg, imgs.device)
+            pattern = brief_pairs(cfg, imgs.device)
         with profiling.annotate("slam.orb.pyramid"):
             levels = image_ops.pyramid(imgs, cfg.num_levels,
                                        cfg.scale_factor)
@@ -321,19 +385,18 @@ def detect_and_describe_batch(imgs: torch.Tensor, cfg: OrbConfig = OrbConfig(),
                      if budget > 0]
             xy, resp, octv, val, patches = (torch.cat(p, dim=1)
                                             for p in zip(*parts))
-        with profiling.annotate("slam.orb.describe"):
-            b, k = val.shape
+        b, k = val.shape
+        with profiling.annotate("slam.orb.describe", keypoints=b * k):
+            if pattern.shape[1:] != (desc_ops.BITS, 2):
+                pattern = brief_pairs_from_matrices(pattern)
             flat_patches = patches.reshape(b * k, PATCH, PATCH)
             flat_val = val.reshape(-1)
             mw = _moment_weights_on(imgs.device)
             ang = orientation_from_patches(flat_patches, flat_val, mw)
-            bits = brief_from_patches_binned(flat_patches, ang, flat_val,
-                                             pattern)
-            bits = bits.reshape(b, k, desc_ops.BITS)
-            signed = torch.where(val[..., None],
-                                 desc_ops.bits_to_signed(bits),
-                                 0).to(torch.int8)
-            descriptors = desc_ops.bits_to_packed(bits)
+            packed, signed = cuda_kernels.brief_bits(flat_patches, ang,
+                                                     flat_val, pattern)
+            descriptors = packed.reshape(b, k, desc_ops.WORDS)
+            signed = signed.reshape(b, k, desc_ops.BITS)
         kps = Keypoints(xy=xy, response=resp, angle=ang.reshape(b, k),
                         octave=octv, valid=val)
         return OrbFeatures(keypoints=kps, descriptors=descriptors,

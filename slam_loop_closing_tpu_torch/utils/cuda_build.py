@@ -139,6 +139,9 @@ def load() -> ctypes.CDLL:
         # patches [k, 32, 32], valid [k], weights [1024, 2], angle [k], k,
         # stream
         "slam_orient_moments": (p, p, p, p, i, p),
+        # patches [k, 32, 32], angle [k], valid [k], pairs [bins, 256, 2],
+        # packed [k, 8], signed [k, 256], k, bins, step, stream
+        "slam_brief_bits": (p, p, p, p, p, p, i, i, f, p),
         # the launch's arguments packed as int64 (see csrc/segment_sum.cu),
         # stream
         "slam_segment_sum": (ctypes.c_char_p, p),

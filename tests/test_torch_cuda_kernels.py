@@ -9,8 +9,9 @@ device (the CPU test run); on a machine with a card and nvcc:
 not use.) Integer outputs, the FAST score and the blur are bitwise equal;
 so are the nearest-neighbour (D), top-2 (F), motion-support (E) and
 frame-pair count (K5) and d1-only nearest-neighbour (I) kernels, the SIFT
-octave kernel (H) in both modes, the pyramid level (J) and the
-orientation moments (M), and the ORB front-end across batch sizes (F9),
+octave kernel (H) in both modes, the pyramid level (J), the
+orientation moments (M) and rotated BRIEF (Q, also against the bf16
+products it replaced), and the ORB front-end across batch sizes (F9),
 and the squared-L2 top-2 kernel (G) on integer-valued descriptors (on real
 ones its dot products sum in another order than cuBLAS's: distances within
 1e-5). So are the pyramid kernel's float32 mode (the SIFT octave halving)
@@ -788,6 +789,124 @@ def test_front_end_batch_invariant_on_card(dev, grid):
         for name, a, b in zip(names, runs[1], runs[batch]):
             assert torch.equal(a, b), f"{name} differs at batch {batch}"
     assert int(runs[1][4].sum()) > 96 * 1500
+
+
+def _describe_inputs(dev, frames: int, features: int, monkeypatch):
+    """The patches, angles, validity and pair table the front-end hands
+    kernel Q on ``frames`` 1080p orbit frames at ORB-``features``: 4
+    rendered frames, each copy shifted along x, in one batch."""
+    base = orbit_sequence(num_frames=4, h=1080, w=1920, num_points=2000,
+                          seed=7)
+    imgs = np.stack([np.roll(base[i % 4], 3 * (i // 4), axis=1)
+                     for i in range(frames)])
+    cfg = OrbConfig(num_features=features)
+    seen = []
+    real = ck.brief_bits
+
+    def spy(*args):
+        seen.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(ck, "brief_bits", spy)
+    orb.detect_and_describe_batch(torch.from_numpy(imgs).to(dev), cfg,
+                                  orb.brief_pairs(cfg, dev))
+    monkeypatch.undo()
+    (args,) = seen
+    return [a.clone() for a in args]
+
+
+@pytest.mark.parametrize("frames,features", [(96, 2000), (50, 4000)])
+def test_brief_bits_kernel_bitwise(dev, frames, features, monkeypatch):
+    """Kernel Q at the main path's shapes (192,000 and 200,000 keypoints)
+    on real patches and angles, and on the CPU tests' edge cases written
+    over some of their rows: angles on half steps, their float32
+    neighbours, +-pi and 0; pixels equal at A and B; bins with pairs whose
+    points share a pixel; invalid rows; pixels below bf16's smallest
+    normal, where the card's bf16 product does not flush. Packed and signed
+    descriptors bitwise equal to its plain version and to the 30 bf16
+    products, the selects, ``bits_to_packed`` and ``bits_to_signed``."""
+    patches, angle, valid, pairs = _describe_inputs(dev, frames, features,
+                                                    monkeypatch)
+    k = patches.shape[0]
+    assert k == frames * features and int(valid.sum()) > k // 2
+    rng = np.random.default_rng(k)
+    step = np.float32(2 * np.pi / 30)
+    half = (np.arange(-31, 32, dtype=np.float32) + 0.5) * step
+    edge = np.concatenate([half, np.nextafter(half, np.float32(9)),
+                           np.nextafter(half, np.float32(-9)),
+                           np.float32([np.pi, -np.pi, 0.0, -0.0])])
+    angle[:edge.size] = torch.from_numpy(edge).to(dev)
+    rows = slice(1000, 3000)   # a few levels: A and B often equal
+    patches[rows] = torch.round(patches[rows] * 3) / 3
+    tie = (pairs[..., 0] == pairs[..., 1]).any(1).nonzero().ravel()
+    shared = torch.from_numpy(rng.integers(0, tie.numel(), 2000)).to(dev)
+    angle[3000:5000] = tie[shared].float() * float(step)
+    tiny = np.float32(2.0 ** -126) * np.float32([0, 0.25, 0.5, 0.75, 1,
+                                                 1 + 2 ** -7, 2, -1, -0.5])
+    patches[5000:6000] = torch.from_numpy(
+        rng.choice(tiny, (1000, 32, 32))).to(dev)
+    valid[6000:8000:3] = False
+    before = ck.LAUNCHES["brief_bits"]
+    packed, signed = ck.brief_bits(patches, angle, valid, pairs)
+    assert ck.LAUNCHES["brief_bits"] == before + 1
+    plain = ck.brief_bits_plain(patches, angle, valid, pairs)
+    assert torch.equal(packed, plain[0]) and torch.equal(signed, plain[1])
+    D = orb.brief_matrices(OrbConfig(num_features=features), dev)
+    bits = orb.brief_from_patches_binned(patches, angle, valid, D)
+    assert torch.equal(packed, desc_ops.bits_to_packed(bits))
+    assert torch.equal(signed, torch.where(valid[:, None],
+                                           desc_ops.bits_to_signed(bits),
+                                           0).to(torch.int8))
+    assert not packed[~valid].any() and not signed[~valid].any()
+
+
+def _describe_ops(prof) -> tuple[list, list]:
+    """Names of the operators under each ``slam.orb.describe`` span of a
+    profile, and of the kernels the profiler links to them (a kernel
+    launched through ctypes is linked to none)."""
+    ops, kernels = [], []
+
+    def walk(e):
+        for c in e.cpu_children:
+            ops.append(c.name)
+            kernels.extend(kern.name for kern in c.kernels)
+            walk(c)
+
+    for e in prof.events():
+        if e.name == "slam.orb.describe":
+            walk(e)
+    return ops, kernels
+
+
+def test_front_end_pattern_forms_and_one_q_launch_on_card(dev):
+    """The pair table and the difference stack give identical features on
+    the card; each ``detect_and_describe_batch`` call launches Q once, and
+    its describe stage no product and no select kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(8)
+    frames = torch.from_numpy(_block_frames(rng, 8, 1080, 1920)).to(dev)
+    imgs = image_ops.ship_frames(frames, dev)
+    cfg = OrbConfig(num_features=2000)
+    before = ck.LAUNCHES["brief_bits"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        feats = [orb.detect_and_describe_batch(imgs, cfg, pattern)
+                 for pattern in (orb.brief_pairs(cfg, dev),
+                                 orb.brief_matrices(cfg, dev))]
+        torch.cuda.synchronize()
+    assert ck.LAUNCHES["brief_bits"] == before + 2
+    for a, b in zip(feats[0], feats[1]):
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y)
+    assert int(feats[0].keypoints.valid.sum()) > 8 * 1500
+    ops, kernels = _describe_ops(prof)
+    assert ops and not [o for o in ops if o in ("aten::mm", "aten::matmul",
+                                                "aten::bmm", "aten::addmm",
+                                                "aten::where")]
+    assert not [n for n in kernels if "gemm" in n.lower() or "nvjet" in n
+                or "elementwise_kernel<128, 4>" in n]
 
 
 def test_hamming_nn_kernel_split_sweep(dev, monkeypatch):
