@@ -263,6 +263,9 @@ NUM_FEATURES = 2000
 MAX_FRAMES = 512          # the live database (bench_incremental.py's size)
 PKG = "slam_loop_closing_tpu/ops/pallas_kernels.py"
 REPLACES = {"fast_score_nms_blur": f"{PKG}:736",     # _fast_kernel
+            # _fast_kernel and select_topk_grid's cell maxima
+            "fast_grid_keys_blur": f"{PKG}:736, "
+                                   "slam_loop_closing_tpu/ops/fast.py:149",
             "l2_knn2": f"{PKG}:256",                  # _l2_knn2_kernel
             "gauss_stack_resp": f"{PKG}:1421",        # _gauss_stack_resp_kernel
                                                       # (+ :1284)
@@ -289,6 +292,7 @@ REPLACES = {"fast_score_nms_blur": f"{PKG}:736",     # _fast_kernel
             "svd_small": "slam_loop_closing_tpu/ops/epipolar.py:106, :129, "
                          ":165, :199"}
 SOURCES = {"fast_score_nms_blur": "fast_score_nms_blur.cu",
+           "fast_grid_keys_blur": "fast_score_nms_blur.cu",
            "extract_patches": "extract_patches.cu",
            "band_count_tiles": "band_counts.cu",
            "pair_counts": "band_counts.cu",
@@ -304,8 +308,11 @@ SOURCES = {"fast_score_nms_blur": "fast_score_nms_blur.cu",
            "brief_bits": "brief_bits.cu",
            "segment_sum": "segment_sum.cu",
            "svd_small": "svd_small.cu"}
-ORB_KERNELS = ("pyramid_level", "fast_score_nms_blur", "extract_patches",
-               "orient_moments", "brief_bits")   # the ORB front-end's
+# the ORB front-end's at grid_cell 8 (kernel A's grid mode) and at 0
+ORB_KERNELS = ("pyramid_level", "fast_grid_keys_blur", "extract_patches",
+               "orient_moments", "brief_bits")
+ORB0_KERNELS = ("pyramid_level", "fast_score_nms_blur", "extract_patches",
+                "orient_moments", "brief_bits")
 VIDEO_KERNELS = ORB_KERNELS + ("band_count_tiles",)
 STREAM_KERNELS = ORB_KERNELS + ("pair_counts", "hamming_nn", "motion_support",
                                  "svd_small")
@@ -344,7 +351,7 @@ HOLE_FRAMES = (5, 70)       # frames marked wholly invalid in the store checks
 C2_HOLE_DEPTH = 192         # frames of the two routes' comparison with holes
 MV_VIDEOS, MV_FRAMES, MV_H, MV_W = 6, 48, 540, 960   # bench_multivideo.py
 MV_FEATURES = 1000
-MV_KERNELS = ORB_KERNELS + ("band_count_tiles",)
+MV_KERNELS = ORB0_KERNELS + ("band_count_tiles",)   # grid_cell 0
 CLI_FRAMES, CLI_H, CLI_W = 32, 144, 192   # the tests' orbit fixture
 # the multi-loop fixture of tests/test_torch_loop_closing.py
 ML_FRAMES, ML_H, ML_W, ML_POINTS, ML_SEED = 96, 240, 320, 800, 3
@@ -450,6 +457,7 @@ def pair_work(nv_q: np.ndarray, nv_t: np.ndarray, qidx, tidx) -> float:
 # that launches them (kernel C and K5 share one kernel; so do H's levels
 # and gates, and the two passes of I and of G)
 KERNEL_NAMES = {"fast_score_nms_blur_kernel": "fast_score_nms_blur",
+                "fast_grid_keys_blur_kernel": "fast_grid_keys_blur",
                 "extract_patches_kernel": "extract_patches",
                 "band_counts_kernel": "band_count_tiles / pair_counts",
                 "hamming_nn_kernel": "hamming_nn",
@@ -668,6 +676,34 @@ def check_kernels(frames_dev, dev) -> dict:
           f"{passing / px:.2%} of the pixels pass the compass pre-test; "
           f"bitwise also at {[tuple(x.shape) for x in extra]}; one frame "
           f"at the 4 levels {one_ms:.4f} ms")
+
+    # A's grid mode (the grid_cell 8 paths) on the same levels: keys, cell
+    # responses and blur against the plain score map and grid_keys
+    t0 = time.perf_counter()
+    ms, plain_ms, cells = 0.0, 0.0, 0
+    for lv in levels + extra:
+        lv = lv.contiguous()
+        check_bitwise(f"kernel A's grid mode at {tuple(lv.shape)}",
+                      ck.fast_grid_keys_blur(lv, thr, 19, 8),
+                      ck.fast_grid_keys_blur_plain(lv, thr, 19, 8))
+    for lv in levels:
+        lv = lv.contiguous()
+        cells += lv.shape[0] * -(-lv.shape[1] // 8) * -(-lv.shape[2] // 8)
+        ms += cuda_ms(lambda: ck.fast_grid_keys_blur(lv, thr, 19, 8), 10)
+        plain_ms += cuda_ms(
+            lambda: ck.fast_grid_keys_blur_plain(lv, thr, 19, 8), 3)
+    # one frame read, the blur written, a key and a response a cell
+    records["fast_grid_keys_blur"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        **bound_pipes(8 * px + 8 * cells, {
+            "fmnmx": FAST_MINMAX_PER_PX * px + FAST_MINMAX_PER_PASS * passing,
+            "ffma": FAST_F32_PER_PX * px + FAST_F32_PER_PASS * passing}))
+    phase("kernel A fast_grid_keys_blur", t0,
+          f"4 levels x 8 frames, cell 8, border 19: keys, responses and blur "
+          f"bitwise, also at {[tuple(x.shape) for x in extra]}; kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{records['fast_grid_keys_blur']['bound_ms']:.4f} ms "
+          f"({records['fast_grid_keys_blur']['bound_by']})")
 
     # J and M at the batched path's shapes (8 frames) and the live path's
     # (one frame), with A and B on the same levels and keypoints
@@ -2923,7 +2959,7 @@ def run_multi_loop(dev) -> dict:
         launches = dict(ck.LAUNCHES)
         got[d] = {(c.current_frame_id, c.matched_frame_id): c.num_matches
                   for c in system.get_loop_closures()}
-    if not all(launches[k] for k in VIDEO_KERNELS):
+    if not all(launches[k] for k in MV_KERNELS):
         raise AssertionError(f"a kernel of the path did not run: {launches}")
     loops = set(got[dev])
     if loops != set(got["cpu"]):

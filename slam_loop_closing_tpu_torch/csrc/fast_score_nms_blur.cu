@@ -43,6 +43,20 @@
 //    reused across pixels: 17 shared loads against 160 min/max a pixel;
 //  * 2,040 blocks of 256 threads for one 1080p frame (B = 1, the live
 //    path) fill the 132 SMs.
+//
+// Grid mode (slam_fast_grid_keys_blur, fast_grid_keys_blur_kernel): the
+// same tile code, for the grid top-K of fast.select_topk_grid. Its epilogue
+// writes no score map: it forms each kept pixel's key as fast.grid_keys
+// does, (bits(kept) & ~posmask) | inverted in-cell index where kept > 0 and
+// the pixel lies in [border, h - border) x [border, w - border), else 0
+// (pixels past a ragged edge included), takes one max per cell x cell cell
+// in shared memory (a cell divides the 64 x 16 tile: cell 1, 2, 4, 8 or
+// 16; an int32 max is free of order, so the bits are the plain version's),
+// and writes each cell's key and the winner's exact score, read back from
+// the tile's scores, to keys and cell_resp [B, ceil(h / cell),
+// ceil(w / cell)] (0 where the key is 0). Bound: the frame read once, the
+// blur written, 8 B a cell: 8.125 B a pixel at cell 8, against 12 B with
+// the score map.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -128,18 +142,39 @@ __device__ __forceinline__ float fast_score(const float (&r)[16], float c,
   return fmaxf(fmaxf(bright, dark), 0.f);
 }
 
-__global__ void __launch_bounds__(kThreads)
-fast_score_nms_blur_kernel(const float* __restrict__ img,
-                           float* __restrict__ score_out,
-                           float* __restrict__ blur_out, const Taps taps,
-                           int h, int w, float thr, int vec) {
+// Grid mode's outputs: keys and cell_resp [B, hb, wb], hb = ceil(h / cell),
+// wb = ceil(w / cell), cell = 1 << lcell; posmask = 2^bit_length(cell^2 - 1)
+// - 1 (1 at cell 1)
+struct GridOut {
+  int* keys;
+  float* cell_resp;
+  int border, lcell, posmask, hb, wb;
+};
+
+// One 64 x 16 output tile: score, NMS and blur; without kGrid the
+// suppressed score and the blur are written, with it the blur and the
+// tile's cell keys and responses
+template <bool kGrid>
+__device__ __forceinline__ void fast_tile(const float* __restrict__ img,
+                                          float* __restrict__ score_out,
+                                          float* __restrict__ blur_out,
+                                          const Taps& taps, int h, int w,
+                                          float thr, int vec,
+                                          const GridOut& g) {
   __shared__ __align__(16) float sim[kIH][kIW];
   __shared__ __align__(16) float ssc[kSH][kSStride];
   __shared__ __align__(16) float svert[kTileH][kVStride];
+  // a cell's key (cell 1: 1,024 cells); none without kGrid
+  __shared__ int skey[kGrid ? kTileW * kTileH : 1];
   const size_t frame = static_cast<size_t>(blockIdx.z) * h * w;
   const float* src = img + frame;
   const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
   const int tid = threadIdx.x;
+  const int lc = kGrid ? g.lcell : 0;
+  const int tile_cells = kGrid ? (kTileW * kTileH) >> (2 * lc) : 0;
+  if (kGrid) {
+    for (int i = tid; i < tile_cells; i += kThreads) skey[i] = 0;
+  }
 
   // the frame tile with its halo, reflect-indexed (the blur's padding; the
   // score reads only samples inside the frame)
@@ -208,7 +243,8 @@ fast_score_nms_blur_kernel(const float* __restrict__ img,
   // NMS and horizontal pass: four neighbouring outputs of one row a thread
   const int oy = tid / (kTileW / 4), ox = (tid % (kTileW / 4)) * 4;
   const int y = y0 + oy, x = x0 + ox;
-  if (y >= h || x >= w) return;
+  // grid mode: every thread reaches the cell reduction's barrier
+  if (!kGrid && (y >= h || x >= w)) return;
   float sr[3][6];
 #pragma unroll
   for (int dy = 0; dy < 3; ++dy) {
@@ -242,18 +278,88 @@ fast_score_nms_blur_kernel(const float* __restrict__ img,
     bo[e] = v;
   }
   const size_t o = frame + static_cast<size_t>(y) * w + x;
-  if (vec && x + 3 < w) {
-    *reinterpret_cast<float4*>(score_out + o) = make_float4(so[0], so[1], so[2], so[3]);
-    *reinterpret_cast<float4*>(blur_out + o) = make_float4(bo[0], bo[1], bo[2], bo[3]);
-  } else {
+  if (!kGrid) {
+    if (vec && x + 3 < w) {
+      *reinterpret_cast<float4*>(score_out + o) = make_float4(so[0], so[1], so[2], so[3]);
+      *reinterpret_cast<float4*>(blur_out + o) = make_float4(bo[0], bo[1], bo[2], bo[3]);
+    } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (x + e < w) {
-        score_out[o + e] = so[e];
-        blur_out[o + e] = bo[e];
+      for (int e = 0; e < 4; ++e) {
+        if (x + e < w) {
+          score_out[o + e] = so[e];
+          blur_out[o + e] = bo[e];
+        }
+      }
+    }
+    return;
+  }
+
+  if (y < h && x < w) {
+    if (vec && x + 3 < w) {
+      *reinterpret_cast<float4*>(blur_out + o) = make_float4(bo[0], bo[1], bo[2], bo[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (x + e < w) blur_out[o + e] = bo[e];
       }
     }
   }
+  // keys of the four outputs, then one shared max a cell (the tile's cells
+  // are row-major, (64 >> lc) a row; cells of 4 px or more hold all four)
+  const int cell = 1 << lc, cmask = cell - 1;
+  const bool row_in = y >= g.border && y < h - g.border && y < h;
+  int key[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int xe = x + e;
+    const bool in = row_in && so[e] > 0.f && xe >= g.border &&
+                    xe < w - g.border && xe < w;
+    const int invpos = cell * cell - 1 - ((oy & cmask) << lc) - (xe & cmask);
+    key[e] = in ? ((__float_as_int(so[e]) & ~g.posmask) | invpos) : 0;
+  }
+  const int crow = (oy >> lc) * (kTileW >> lc);
+  if (lc >= 2) {
+    const int m = max(max(key[0], key[1]), max(key[2], key[3]));
+    if (m > 0) atomicMax(&skey[crow + (ox >> lc)], m);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (key[e] > 0) atomicMax(&skey[crow + ((ox + e) >> lc)], key[e]);
+  }
+  __syncthreads();
+
+  // each cell of the tile inside the frame's cell grid: its key, and the
+  // winner's score from the tile (kept, so equal to its NMS output)
+  const int row_cells = kTileW >> lc;
+  for (int i = tid; i < tile_cells; i += kThreads) {
+    const int cy = i / row_cells, cx = i % row_cells;
+    const int gy = (y0 >> lc) + cy, gx = (x0 >> lc) + cx;
+    if (gy >= g.hb || gx >= g.wb) continue;
+    const int k = skey[i];
+    float r = 0.f;
+    if (k != 0) {
+      const int pos = cell * cell - 1 - (k & g.posmask);
+      r = ssc[(cy << lc) + (pos >> lc) + 1][(cx << lc) + (pos & cmask) + 1];
+    }
+    const size_t c = (static_cast<size_t>(blockIdx.z) * g.hb + gy) * g.wb + gx;
+    g.keys[c] = k;
+    g.cell_resp[c] = r;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+fast_score_nms_blur_kernel(const float* __restrict__ img,
+                           float* __restrict__ score_out,
+                           float* __restrict__ blur_out, const Taps taps,
+                           int h, int w, float thr, int vec) {
+  fast_tile<false>(img, score_out, blur_out, taps, h, w, thr, vec, GridOut{});
+}
+
+__global__ void __launch_bounds__(kThreads)
+fast_grid_keys_blur_kernel(const float* __restrict__ img,
+                           float* __restrict__ blur_out, const Taps taps,
+                           int h, int w, float thr, int vec, const GridOut g) {
+  fast_tile<true>(img, nullptr, blur_out, taps, h, w, thr, vec, g);
 }
 
 }  // namespace
@@ -276,5 +382,36 @@ extern "C" int slam_fast_score_nms_blur(const void* img, void* score_out,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(img), static_cast<float*>(score_out),
       static_cast<float*>(blur_out), t, h, w, threshold, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Grid mode: keys (int32) and cell_resp (float32) [b, ceil(h / cell),
+// ceil(w / cell)] in place of the score map; cell 1, 2, 4, 8 or 16
+extern "C" int slam_fast_grid_keys_blur(const void* img, void* keys,
+                                        void* cell_resp, void* blur_out,
+                                        const float* taps, int b, int h,
+                                        int w, float threshold, int border,
+                                        int cell, void* stream) {
+  if (b <= 0 || h <= 0 || w <= 0) return static_cast<int>(cudaGetLastError());
+  int lc = 0;
+  while ((1 << lc) < cell) ++lc;
+  if (cell <= 0 || (1 << lc) != cell || lc > 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Taps t;
+  for (int i = 0; i < kTaps; ++i) t.k[i] = taps[i];
+  int posbits = 0;
+  while ((cell * cell - 1) >> posbits) ++posbits;
+  posbits = posbits < 1 ? 1 : posbits;
+  const GridOut g{static_cast<int*>(keys), static_cast<float*>(cell_resp),
+                  border, lc, (1 << posbits) - 1, (h + cell - 1) / cell,
+                  (w + cell - 1) / cell};
+  const int vec = w % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(img) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(blur_out) % 16 == 0;
+  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, b);
+  fast_grid_keys_blur_kernel<<<grid, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(img), static_cast<float*>(blur_out), t, h, w,
+      threshold, vec, g);
   return static_cast<int>(cudaGetLastError());
 }

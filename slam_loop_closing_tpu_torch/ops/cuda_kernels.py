@@ -16,6 +16,9 @@ show that its main path went through the kernels.
 wrapper                source                        replaces (TPU kernel)
 =====================  ============================  ===========================
 fast_score_nms_blur    csrc/fast_score_nms_blur.cu   ``_fast_kernel``
+fast_grid_keys_blur    csrc/fast_score_nms_blur.cu   ``_fast_kernel`` and the
+                                                     cell maxima of
+                                                     ``select_topk_grid``
 extract_patches        csrc/extract_patches.cu       ``_patch_kernel``
 band_count_tiles       csrc/band_counts.cu           ``_band_d1_kernel`` and
                                                      ``_band_counts_kernel``
@@ -75,7 +78,8 @@ from slam_loop_closing_tpu_torch.ops import orb
 from slam_loop_closing_tpu_torch.ops import sift as sift_ops
 from slam_loop_closing_tpu_torch.utils import cuda_build
 
-LAUNCHES = {"fast_score_nms_blur": 0, "extract_patches": 0,
+LAUNCHES = {"fast_score_nms_blur": 0, "fast_grid_keys_blur": 0,
+            "extract_patches": 0,
             "band_count_tiles": 0, "pair_counts": 0, "hamming_nn": 0,
             "hamming_knn2": 0, "motion_support": 0, "l2_knn2": 0,
             "gauss_stack_resp": 0, "hamming_d1": 0, "pyramid_level": 0,
@@ -185,6 +189,51 @@ def fast_score_nms_blur(imgs: torch.Tensor, threshold: float = 20.0 / 255.0,
             score.data_ptr(), blurred.data_ptr(),
             _blur_taps(float(blur_sigma), blur_radius), b, h, w, threshold)
     return score, blurred
+
+
+def fast_grid_keys_blur_plain(imgs: torch.Tensor,
+                              threshold: float = 20.0 / 255.0,
+                              border: int = 19, cell: int = 8,
+                              blur_sigma: float = 2.0, blur_radius: int = 3):
+    """(keys, cell_resp, blurred) of ``[B, H, W]`` float32 frames:
+    :func:`fast_score_nms_blur_plain`, then the cell keys of its suppressed
+    score, :func:`..fast.grid_keys` (keys int32 and responses float32,
+    ``[B, ceil(H / cell), ceil(W / cell)]``)."""
+    score, blurred = fast_score_nms_blur_plain(imgs, threshold, blur_sigma,
+                                               blur_radius)
+    return fast_ops.grid_keys(score, border, cell) + (blurred,)
+
+
+def fast_grid_keys_blur(imgs: torch.Tensor, threshold: float = 20.0 / 255.0,
+                        border: int = 19, cell: int = 8,
+                        blur_sigma: float = 2.0, blur_radius: int = 3):
+    """:func:`fast_grid_keys_blur_plain` of ``[B, H, W]`` float32 frames, as
+    one launch of kernel A's grid mode on a CUDA tensor (blur radius 3, a
+    cell of :data:`..fast.KERNEL_GRID_CELLS`): each cell's max key is taken
+    in the tile's epilogue, and no score map is written. Keys, responses
+    and blur are bitwise equal to the plain version."""
+    _require(imgs.dim() == 3 and imgs.dtype == torch.float32,
+             "imgs must be [B, H, W] float32")
+    if not _on_cuda(imgs):
+        return fast_grid_keys_blur_plain(imgs, threshold, border, cell,
+                                         blur_sigma, blur_radius)
+    b, h, w = imgs.shape
+    _require(blur_radius == 3, "the CUDA blur has radius 3")
+    _require(cell in fast_ops.KERNEL_GRID_CELLS,
+             f"the kernel's grid cell is one of {fast_ops.KERNEL_GRID_CELLS}")
+    _require(min(h, w) > blur_radius, "frame smaller than the blur halo")
+    _require(b <= 65535, "at most 65535 frames per launch")
+    imgs = imgs.contiguous()
+    hb, wb = -(-h // cell), -(-w // cell)
+    keys = torch.empty((b, hb, wb), dtype=torch.int32, device=imgs.device)
+    cell_resp = torch.empty((b, hb, wb), dtype=torch.float32,
+                            device=imgs.device)
+    blurred = torch.empty_like(imgs)
+    _launch("fast_grid_keys_blur", imgs.device, imgs.data_ptr(),
+            keys.data_ptr(), cell_resp.data_ptr(), blurred.data_ptr(),
+            _blur_taps(float(blur_sigma), blur_radius), b, h, w, threshold,
+            border, cell)
+    return keys, cell_resp, blurred
 
 
 def fast_compass_pass(imgs: torch.Tensor,

@@ -5,9 +5,13 @@ frames: ``[B, H, W]`` float32 in, ``[B, H, W]`` score maps and fixed-size
 ``[B, K]`` keypoint sets out.
 
 Pipeline: :func:`fast_score_map` -> :func:`nms` (3x3) -> :func:`select_topk`
-or :func:`select_topk_grid`. On a CUDA tensor :func:`detect_with_blur` runs
-the score, the NMS and the descriptor blur through the hand-written kernel
-:func:`.cuda_kernels.fast_score_nms_blur`.
+or :func:`select_topk_grid` (:func:`grid_keys`, one key a cell, then
+:func:`rank_grid_keys`). On a CUDA tensor :func:`detect_with_blur` runs the
+score, the NMS and the descriptor blur through the hand-written kernel
+:func:`.cuda_kernels.fast_score_nms_blur`; with a grid cell of
+:data:`KERNEL_GRID_CELLS` the same kernel's grid mode,
+:func:`.cuda_kernels.fast_grid_keys_blur`, writes the cell keys in place of
+the score map.
 
 Top-K ties resolve to the LOWEST flat index, as ``jax.lax.top_k`` does
 (FAST scores tie often: pixels are 8-bit); ``torch.topk`` promises no
@@ -20,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from slam_loop_closing_tpu_torch.ops import image as image_ops
+from slam_loop_closing_tpu_torch.utils import profiling
 
 # Bresenham circle of radius 3 — the 16 FAST offsets (dy, dx), clockwise
 # from 12 o'clock.
@@ -28,6 +33,8 @@ CIRCLE = (
     (3, 0), (3, -1), (2, -2), (1, -3), (0, -3), (-1, -3), (-2, -2), (-3, -1),
 )
 ARC = 9  # FAST-9: need 9 contiguous circle pixels all brighter/darker
+# grid cells that divide kernel A's 64 x 16 tile: its grid mode reduces them
+KERNEL_GRID_CELLS = (1, 2, 4, 8, 16)
 
 
 def _shifted_ring(imgs: torch.Tensor) -> torch.Tensor:
@@ -117,13 +124,20 @@ def select_topk_banded(score: torch.Tensor, num_features: int,
     return torch.stack([x, y], dim=-1), resp, resp > 0.0
 
 
-def select_topk_grid(score: torch.Tensor, num_features: int, border: int = 19,
-                     cell: int = 8):
-    """Top-K with at most one keypoint per ``cell x cell`` cell. Each
-    positive score's int32 bit pattern has its low bits replaced by the
-    inverted in-cell pixel index, so one max per cell carries its own argmax
-    (lowest flat index on ties); responses are re-read exactly from the map.
-    Returns (xy, response, valid) like :func:`select_topk`."""
+def _posmask(cell: int) -> int:
+    """The low key bits that hold a pixel's inverted index in its cell."""
+    return (1 << max(1, (cell * cell - 1).bit_length())) - 1
+
+
+def grid_keys(score: torch.Tensor, border: int = 19, cell: int = 8):
+    """One key and one response a ``cell x cell`` cell of ``[B, H, W]``
+    maps: (keys [B, hb, wb] int32, cell_resp [B, hb, wb] float32), hb =
+    ceil(H / cell), wb = ceil(W / cell). Each positive score inside the
+    border has the low bits of its int32 bit pattern replaced by the
+    inverted in-cell pixel index, so one max a cell carries its own argmax
+    (lowest flat index on ties); elsewhere, and past a ragged edge, the key
+    is 0. ``cell_resp`` is the winner's exact score (0 where the key is 0).
+    Kernel A's grid mode computes the same bits."""
     b, h, w = score.shape
     masked = torch.where(_interior(h, w, border, score.device), score, 0.0)
     ph, pw = (-h) % cell, (-w) % cell
@@ -132,8 +146,7 @@ def select_topk_grid(score: torch.Tensor, num_features: int, border: int = 19,
     hp, wp = h + ph, w + pw
     hb, wb = hp // cell, wp // cell
 
-    posbits = max(1, (cell * cell - 1).bit_length())
-    posmask = (1 << posbits) - 1
+    posmask = _posmask(cell)
     dev = score.device
     invpos = ((cell * cell - 1)
               - (torch.arange(hp, dtype=torch.int32, device=dev)[:, None]
@@ -143,18 +156,49 @@ def select_topk_grid(score: torch.Tensor, num_features: int, border: int = 19,
     bits = masked.contiguous().view(torch.int32)
     packed = torch.where(masked > 0.0, (bits & ~posmask) | invpos, 0)
     rowmax = torch.amax(packed.reshape(b, hb, cell, wp), dim=2)     # [b, hb, wp]
-    cmax = torch.amax(rowmax.reshape(b, hb, wb, cell), dim=3).reshape(b, -1)
+    keys = torch.amax(rowmax.reshape(b, hb, wb, cell), dim=3)       # [b, hb, wb]
 
-    pk, sel = _topk_lowest_index(cmax, num_features)
-    valid = pk > 0
-    pos = (cell * cell - 1) - (pk & posmask)
-    y = (sel // wb) * cell + pos // cell
-    x = (sel % wb) * cell + pos % cell
-    flat = torch.where(valid, y * w + x, 0)
-    resp = torch.where(valid, torch.gather(score.reshape(b, h * w), 1, flat),
-                       0.0)
-    return (torch.stack([x.to(torch.float32), y.to(torch.float32)], dim=-1),
-            resp, valid)
+    pos = (cell * cell - 1) - (keys & posmask)
+    y = torch.arange(hb, device=dev)[:, None] * cell + pos // cell
+    x = torch.arange(wb, device=dev)[None, :] * cell + pos % cell
+    valid = keys > 0
+    flat = torch.where(valid, y * w + x, 0).reshape(b, -1)
+    cell_resp = torch.where(
+        valid, torch.gather(score.reshape(b, h * w), 1, flat).reshape(
+            b, hb, wb), 0.0)
+    return keys, cell_resp
+
+
+def rank_grid_keys(keys: torch.Tensor, cell_resp: torch.Tensor,
+                   num_features: int, cell: int, fused: bool = False):
+    """Top-K of the cell keys of :func:`grid_keys` (``[B, hb, wb]``, or
+    kernel A's grid mode) as (xy [B, K, 2] float32 (x, y), response [B, K],
+    valid [B, K] bool): a stable descending sort (ties to the lowest cell),
+    the winner's position decoded from its key, its response read from
+    ``cell_resp``. Span ``slam.orb.topk``: counters ``cells`` (the keys
+    ranked) and ``fused`` (1 where the keys came from the kernel)."""
+    b, _, wb = keys.shape
+    with profiling.annotate("slam.orb.topk", cells=keys.numel(),
+                            fused=int(fused)):
+        posmask = _posmask(cell)
+        pk, sel = _topk_lowest_index(keys.reshape(b, -1), num_features)
+        valid = pk > 0
+        pos = (cell * cell - 1) - (pk & posmask)
+        y = (sel // wb) * cell + pos // cell
+        x = (sel % wb) * cell + pos % cell
+        resp = torch.gather(cell_resp.reshape(b, -1), 1, sel)
+        return (torch.stack([x.to(torch.float32), y.to(torch.float32)],
+                            dim=-1), resp, valid)
+
+
+def select_topk_grid(score: torch.Tensor, num_features: int, border: int = 19,
+                     cell: int = 8):
+    """Top-K with at most one keypoint per ``cell x cell`` cell:
+    :func:`grid_keys` then :func:`rank_grid_keys`; responses are the
+    map's exact scores. Returns (xy, response, valid) like
+    :func:`select_topk`."""
+    keys, cell_resp = grid_keys(score, border, cell)
+    return rank_grid_keys(keys, cell_resp, num_features, cell)
 
 
 def detect_with_blur(imgs: torch.Tensor, threshold: float = 20.0 / 255.0,
@@ -164,9 +208,16 @@ def detect_with_blur(imgs: torch.Tensor, threshold: float = 20.0 / 255.0,
     """FAST detection plus the descriptor-prefilter Gaussian blur of
     ``[B, H, W]`` frames: (xy, response, valid, blurred). With the 3x3 NMS
     the score, NMS and blur run as one kernel (its plain version on a CPU
-    tensor); the blur pads by reflection in both paths."""
+    tensor); with a grid cell of :data:`KERNEL_GRID_CELLS` too, the
+    kernel's grid mode writes the cell keys in place of the score map. The
+    blur pads by reflection in every path."""
     from slam_loop_closing_tpu_torch.ops import cuda_kernels
 
+    if nms_radius == 1 and grid_cell in KERNEL_GRID_CELLS:
+        keys, cell_resp, blurred = cuda_kernels.fast_grid_keys_blur(
+            imgs, threshold, border, grid_cell, blur_sigma, blur_radius)
+        return rank_grid_keys(keys, cell_resp, num_features, grid_cell,
+                              fused=imgs.is_cuda) + (blurred,)
     if nms_radius == 1:
         suppressed, blurred = cuda_kernels.fast_score_nms_blur(
             imgs, threshold, blur_sigma, blur_radius)

@@ -367,8 +367,10 @@ def detect_and_describe_batch(imgs: torch.Tensor, cfg: OrbConfig = OrbConfig(),
     BRIEF run once over the concatenated all-level patch set. Spans:
     ``slam.orb.frontend`` around the call, inside it ``slam.orb.pyramid``,
     ``slam.orb.detect`` (every level's FAST, NMS, blur, grid top-K and
-    patches) and ``slam.orb.describe`` (orientation, BRIEF's signed and
-    packed descriptors; counter ``keypoints``, the rows described)."""
+    patches; inside it, at ``grid_cell > 0``, ``slam.orb.topk`` a level,
+    the ranking of the cell keys) and ``slam.orb.describe`` (orientation,
+    BRIEF's signed and packed descriptors; counter ``keypoints``, the rows
+    described)."""
     from slam_loop_closing_tpu_torch.ops import cuda_kernels
 
     with profiling.annotate("slam.orb.frontend", frames=imgs.shape[0]):

@@ -105,6 +105,9 @@ def load() -> ctypes.CDLL:
     signatures = {
         # img, score_out, blur_out, host taps[7], b, h, w, threshold, stream
         "slam_fast_score_nms_blur": (p, p, p, fp, i, i, i, f, p),
+        # img, keys, cell_resp, blur_out, host taps[7], b, h, w, threshold,
+        # border, cell, stream
+        "slam_fast_grid_keys_blur": (p, p, p, p, fp, i, i, i, f, i, i, p),
         # img, xy, out, b, k, h, w, patch, center, stream
         "slam_extract_patches": (p, p, p, i, i, i, i, i, i, p),
         # packed, valid, qidx, tidx, out, p_cnt, n, block, scale, stream

@@ -22,6 +22,7 @@ with no host sync (F5).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -35,6 +36,7 @@ from slam_loop_closing_tpu_torch.models import sfm
 from slam_loop_closing_tpu_torch.models.loop_closing import LoopClosingSystem
 from slam_loop_closing_tpu_torch.ops import cuda_kernels as ck
 from slam_loop_closing_tpu_torch.ops import descriptors as desc_ops
+from slam_loop_closing_tpu_torch.ops import fast as fast_ops
 from slam_loop_closing_tpu_torch.ops import image as image_ops
 from slam_loop_closing_tpu_torch.config import BaConfig, PgoConfig, SiftConfig
 from slam_loop_closing_tpu_torch.ops import ba, lie, matching, orb, pgo, sift
@@ -87,6 +89,138 @@ def test_fast_kernel_refuses_other_radius(dev):
     with pytest.raises(ValueError):
         ck.fast_score_nms_blur(torch.zeros((1, 32, 32), device=dev),
                                blur_radius=2)
+
+
+@functools.cache
+def _grid_levels(kind: str, dev) -> list:
+    """The four pyramid levels (1080x1920, 900x1600, 750x1333, 625x1111) of
+    three 1080p frames on the card: rendered orbit frames, or speckle
+    (uniform random 8-bit pixels, where most pixels pass kernel A's compass
+    pre-test and scores tie often)."""
+    if kind == "orbit":
+        frames = orbit_sequence(num_frames=3, h=1080, w=1920,
+                                num_points=2000, seed=7)
+    else:
+        frames = np.random.default_rng(1080).integers(
+            0, 256, (3, 1080, 1920), dtype=np.uint8)
+    imgs = image_ops.ship_frames(torch.from_numpy(frames), dev)
+    return [lv.contiguous() for lv in image_ops.pyramid(imgs, 4, 1.2)]
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+@pytest.mark.parametrize("kind", ["orbit", "speckle"])
+def test_fast_grid_kernel_bitwise(dev, kind, level):
+    """Kernel A's grid mode at the four 1080p level shapes, B = 3, at cells
+    4, 8 and 16 and borders 3 and 19: keys, cell responses and blur bitwise
+    equal to the plain version (the plain score map, then ``grid_keys``),
+    one launch of the grid mode a call and none of the score-map mode."""
+    imgs = _grid_levels(kind, dev)[level]
+    assert imgs.shape[1:] == [(1080, 1920), (900, 1600), (750, 1333),
+                              (625, 1111)][level]
+    score, ref_blur = ck.fast_score_nms_blur_plain(imgs)
+    for cell in (4, 8, 16):
+        for border in (3, 19):
+            before = dict(ck.LAUNCHES)
+            keys, cell_resp, blur = ck.fast_grid_keys_blur(
+                imgs, border=border, cell=cell)
+            assert ck.LAUNCHES["fast_grid_keys_blur"] == \
+                before["fast_grid_keys_blur"] + 1
+            assert ck.LAUNCHES["fast_score_nms_blur"] == \
+                before["fast_score_nms_blur"]
+            ref_keys, ref_resp = fast_ops.grid_keys(score, border, cell)
+            assert torch.equal(keys, ref_keys), (cell, border)
+            assert torch.equal(cell_resp, ref_resp), (cell, border)
+            assert torch.equal(blur, ref_blur)
+            assert (keys > 0).any()
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 45, 61), (3, 37, 61), (2, 21, 50),
+                                   (2, 313, 555)])
+def test_fast_grid_kernel_ragged_every_cell(dev, b, h, w):
+    """The grid mode at ragged edges and under a tile, at every cell size
+    it takes (1, 2, 4, 8, 16), borders 0, 3 and 19: bitwise equal to the
+    plain version; other cells are refused."""
+    rng = np.random.default_rng(h * w + b)
+    u8 = rng.integers(0, 256, (b, h, w))
+    u8[:, h // 3:2 * h // 3] = 128
+    imgs = torch.from_numpy((u8 / 255.0).astype(np.float32)).to(dev)
+    score, ref_blur = ck.fast_score_nms_blur_plain(imgs)
+    for cell in (1, 2, 4, 8, 16):
+        for border in (0, 3, 19):
+            keys, cell_resp, blur = ck.fast_grid_keys_blur(
+                imgs, border=border, cell=cell)
+            ref_keys, ref_resp = fast_ops.grid_keys(score, border, cell)
+            assert torch.equal(keys, ref_keys), (cell, border)
+            assert torch.equal(cell_resp, ref_resp), (cell, border)
+            assert torch.equal(blur, ref_blur)
+    with pytest.raises(ValueError):
+        ck.fast_grid_keys_blur(imgs, cell=3)
+
+
+def test_front_end_grid_on_card_equals_cpu(dev):
+    """``detect_and_describe_batch`` at ``grid_cell = 8`` (the grid mode of
+    kernel A on the card, the plain score map and ``grid_keys`` on the
+    CPU) on two 1080p orbit frames: keypoints, responses, octaves and
+    validity bitwise equal; orientation bins and, where they agree, the
+    descriptors too (the angle's atan2 may differ in its last bits)."""
+    frames = orbit_sequence(num_frames=2, h=1080, w=1920, num_points=2000,
+                            seed=7)
+    cfg = OrbConfig(num_features=2000, grid_cell=8)
+    out = {}
+    for d in ("cpu", dev):
+        imgs = torch.from_numpy(frames).to(d)
+        out[str(d)] = orb.detect_and_describe_batch(imgs, cfg)
+    cpu, card = out["cpu"], out[str(dev)]
+    for name in ("xy", "response", "octave", "valid"):
+        assert torch.equal(getattr(cpu.keypoints, name),
+                           getattr(card.keypoints, name).cpu()), name
+    v = cpu.keypoints.valid
+    assert int(v.sum()) > 2 * 1500
+    step = 2 * np.pi / 30
+    bins = [torch.remainder(torch.round(k.angle.cpu() / step), 30)
+            for k in (cpu.keypoints, card.keypoints)]
+    same = (bins[0] == bins[1]) & v
+    assert int((v & ~same).sum()) <= 0.01 * int(v.sum())
+    assert torch.equal(cpu.signed[same], card.signed.cpu()[same])
+
+
+@pytest.mark.parametrize("grid", [0, 8])
+def test_front_end_kernel_a_mode_by_grid(dev, grid):
+    """A grid-8 ``detect_and_describe_batch`` call launches kernel A's grid
+    mode once a level and its score-map mode never; a ``grid_cell = 0``
+    call the reverse. Under the profiler each level's ranking is a
+    ``slam.orb.topk`` span under ``slam.orb.detect``, counting its cells
+    and ``fused`` 1 (the keys came from the kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from slam_loop_closing_tpu_torch.utils import profiling
+
+    imgs = torch.from_numpy(orbit_sequence(num_frames=2, h=240, w=320,
+                                           num_points=250, seed=3)).to(dev)
+    cfg = OrbConfig(num_features=500, grid_cell=grid)
+    before = dict(ck.LAUNCHES)
+    start = len(profiling.spans())
+    with profile(activities=[ProfilerActivity.CPU]):
+        orb.detect_and_describe_batch(imgs, cfg)
+    launched = {k: ck.LAUNCHES[k] - before[k]
+                for k in ("fast_grid_keys_blur", "fast_score_nms_blur")}
+    levels = cfg.num_levels
+    assert launched == ({"fast_grid_keys_blur": levels,
+                         "fast_score_nms_blur": 0} if grid else
+                        {"fast_grid_keys_blur": 0,
+                         "fast_score_nms_blur": levels})
+    recs = profiling.spans()[start:]
+    topk = [r for r in recs if r["name"] == "slam.orb.topk"]
+    detect = [r for r in recs if r["name"] == "slam.orb.detect"]
+    if grid:
+        sizes = [lv.shape[-2:] for lv in image_ops.pyramid(
+            imgs, levels, cfg.scale_factor)]
+        assert [r["counters"] for r in topk] == [
+            {"cells": 2 * -(-h // 8) * -(-w // 8), "fused": 1}
+            for h, w in sizes]
+        assert {r["parent"] for r in topk} == {detect[0]["id"]}
+    else:
+        assert topk == []
 
 
 @pytest.mark.parametrize("patch,center", [(32, 15), (40, 19)])

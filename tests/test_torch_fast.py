@@ -1,11 +1,13 @@
 """The port's FAST detector against the JAX package on the CPU: score, NMS,
-top-K selection (ties included), and the plain version of the fused
-score+NMS+blur kernel."""
+top-K selection (ties included), the grid top-K as cell keys then their
+ranking, and the plain versions of the fused score+NMS+blur kernel and of
+its grid mode."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from slam_loop_closing_tpu.ops import fast as jfast
 from slam_loop_closing_tpu.ops import image as jimage
@@ -73,6 +75,78 @@ def test_select_topk_grid_ties_lowest_index(rng, h, w, cell):
     for b in range(2):
         ref = jfast.select_topk_grid(jnp.asarray(scores[b]), k, 3, cell)
         assert_same_selection([g[b] for g in got], ref)
+
+
+def select_topk_grid_full_map(score: torch.Tensor, num_features: int,
+                              border: int, cell: int):
+    """The grid top-K as the port ran it before the cell keys moved into
+    kernel A: the keyed full-map passes and both ``amax`` reductions, the
+    stable sort of the cell maxima, the responses gathered from the map."""
+    b, h, w = score.shape
+    masked = torch.where(tfast._interior(h, w, border, score.device), score,
+                         0.0)
+    ph, pw = (-h) % cell, (-w) % cell
+    if ph or pw:
+        masked = F.pad(masked, (0, pw, 0, ph))
+    hp, wp = h + ph, w + pw
+    hb, wb = hp // cell, wp // cell
+    posmask = (1 << max(1, (cell * cell - 1).bit_length())) - 1
+    invpos = ((cell * cell - 1)
+              - (torch.arange(hp, dtype=torch.int32)[:, None] % cell) * cell
+              - (torch.arange(wp, dtype=torch.int32)[None, :] % cell))
+    bits = masked.contiguous().view(torch.int32)
+    packed = torch.where(masked > 0.0, (bits & ~posmask) | invpos, 0)
+    rowmax = torch.amax(packed.reshape(b, hb, cell, wp), dim=2)
+    cmax = torch.amax(rowmax.reshape(b, hb, wb, cell), dim=3).reshape(b, -1)
+    pk, sel = tfast._topk_lowest_index(cmax, num_features)
+    valid = pk > 0
+    pos = (cell * cell - 1) - (pk & posmask)
+    y = (sel // wb) * cell + pos // cell
+    x = (sel % wb) * cell + pos % cell
+    flat = torch.where(valid, y * w + x, 0)
+    resp = torch.where(valid, torch.gather(score.reshape(b, h * w), 1, flat),
+                       0.0)
+    return (torch.stack([x.to(torch.float32), y.to(torch.float32)], dim=-1),
+            resp, valid)
+
+
+@pytest.mark.parametrize("border", [3, 19])
+@pytest.mark.parametrize("cell", [4, 8, 16])
+@pytest.mark.parametrize("h,w", [(1080, 1920), (900, 1600), (750, 1333),
+                                 (625, 1111), (45, 61)])
+def test_grid_keys_ranked_equal_full_map_and_jax(rng, h, w, cell, border):
+    """The cell keys of ``grid_keys`` ranked by ``rank_grid_keys``, at the
+    four 1080p level shapes and a ragged 45x61, on tied maps: bitwise the
+    full-map grid top-K it replaced and the JAX package's
+    ``select_topk_grid``; ``select_topk_grid`` is that composition."""
+    scores = torch.from_numpy(tied_map(rng, 1, h, w))
+    k = min(2000, -(-h // cell) * -(-w // cell) // 2)
+    keys, cell_resp = tfast.grid_keys(scores, border, cell)
+    assert keys.shape == (1, -(-h // cell), -(-w // cell)) == cell_resp.shape
+    got = tfast.rank_grid_keys(keys, cell_resp, k, cell)
+    for g, r in zip(got, select_topk_grid_full_map(scores, k, border, cell)):
+        assert torch.equal(g, r)
+    for g, r in zip(got, tfast.select_topk_grid(scores, k, border, cell)):
+        assert torch.equal(g, r)
+    ref = jfast.select_topk_grid(jnp.asarray(scores[0].numpy()), k, border,
+                                 cell)
+    assert_same_selection([g[0] for g in got], ref)
+    assert got[2].any()
+
+
+def test_plain_grid_keys_blur_counts_no_launch(rng):
+    """``fast_grid_keys_blur`` on a CPU tensor takes its plain version (the
+    kernel's plain score, NMS and blur, then ``grid_keys``) and counts no
+    launch of either mode of kernel A."""
+    imgs = torch.from_numpy(corner_frames(rng, 2, 61, 90))
+    before = dict(cuda_kernels.LAUNCHES)
+    keys, cell_resp, blur = cuda_kernels.fast_grid_keys_blur(
+        imgs, border=5, cell=8)
+    assert cuda_kernels.LAUNCHES == before
+    score, ref_blur = cuda_kernels.fast_score_nms_blur_plain(imgs)
+    ref_keys, ref_resp = tfast.grid_keys(score, 5, 8)
+    assert torch.equal(keys, ref_keys) and torch.equal(cell_resp, ref_resp)
+    assert torch.equal(blur, ref_blur) and (keys > 0).any()
 
 
 def test_plain_fused_score_matches_xla_path(rng):

@@ -1,7 +1,8 @@
 """The arithmetic forms of the redesigned kernels A (FAST score + NMS + blur)
 and G (squared-L2 top-2), modelled in torch on the CPU, where no kernel
 runs: A's arc extrema by doubling and its compass pre-test against the
-plain score map, bitwise; G's 3xTF32 split of the cross term (exact on
+plain score map, and its grid mode's cell maxima tile by tile against
+``grid_keys``, bitwise; G's 3xTF32 split of the cross term (exact on
 integer-valued descriptors, within 1e-6 of float64 on SIFT descriptors)
 and the per-frame extents it reads from the device. Likewise E's and F's
 splits and keys, and kernel H's tiles: the blur level by level in tiles
@@ -88,6 +89,71 @@ def test_compass_pretest_zero_set(b, h, w):
     # fail together: the flat band does
     runs = passing[..., :w // 32 * 32].reshape(b, h, -1, 32).any(-1)
     assert not runs.all()
+
+
+def grid_epilogue_model(sup: np.ndarray, border: int, cell: int):
+    """Kernel A's grid-mode epilogue on a suppressed score map ``[h, w]``,
+    thread by thread as the kernel runs it: each 64 x 16 tile's threads
+    key their four outputs (tile-local row, global column), take a max a
+    cell of the tile (row-major cells, ``64 >> lc`` a row), then write
+    each cell inside the frame's cell grid with its winner's score read
+    back from the tile. (keys [hb, wb] int32, cell_resp [hb, wb])."""
+    h, w = sup.shape
+    lc = cell.bit_length() - 1
+    posmask = (1 << max(1, (cell * cell - 1).bit_length())) - 1
+    hb, wb = -(-h // cell), -(-w // cell)
+    keys = np.full((hb, wb), -1, np.int64)
+    resp = np.full((hb, wb), np.nan, np.float32)
+    bits = sup.view(np.int32)
+    row_cells = 64 >> lc
+    for y0 in range(0, h, 16):
+        for x0 in range(0, w, 64):
+            skey = np.zeros(1024 >> (2 * lc), np.int64)
+            for tid in range(256):
+                oy, ox = tid // 16, tid % 16 * 4
+                y = y0 + oy
+                for e in range(4):
+                    xe = x0 + ox + e
+                    if not (border <= y < h - border and y < h
+                            and border <= xe < w - border and xe < w
+                            and sup[y, xe] > 0):
+                        continue
+                    invpos = (cell * cell - 1 - ((oy & (cell - 1)) << lc)
+                              - (xe & (cell - 1)))
+                    i = (oy >> lc) * row_cells + ((ox + e) >> lc)
+                    skey[i] = max(skey[i], (int(bits[y, xe]) & ~posmask)
+                                  | invpos)
+            for i, k in enumerate(skey):
+                cy, cx = divmod(i, row_cells)
+                gy, gx = (y0 >> lc) + cy, (x0 >> lc) + cx
+                if gy >= hb or gx >= wb:
+                    continue
+                keys[gy, gx] = k
+                pos = cell * cell - 1 - (k & posmask)
+                resp[gy, gx] = (sup[y0 + (cy << lc) + (pos >> lc),
+                                    x0 + (cx << lc) + (pos & (cell - 1))]
+                                if k else 0.0)
+    return keys, resp
+
+
+@pytest.mark.parametrize("cell", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("h,w,border", [(45, 61, 3), (47, 130, 19),
+                                        (40, 64, 0)])
+def test_grid_epilogue_tiles_equal_grid_keys(h, w, border, cell):
+    """The grid mode's tile arithmetic (local row, cell index, the
+    winner's position read back from its key) gives ``grid_keys``' keys
+    and responses bitwise, every cell of the grid written once, at ragged
+    edges, a border inside and outside the NMS's zero ring, every cell
+    size of the mode, on maps with tied scores."""
+    rng = np.random.default_rng(h * w + cell)
+    imgs = frames_with_flats_and_ties(rng, 1, h, w)
+    sup = tfast.nms(tfast.fast_score_map(imgs, THR))
+    sup[0, ::5, ::7] = 0.5                        # ties inside cells
+    keys, resp = grid_epilogue_model(sup[0].numpy(), border, cell)
+    ref_keys, ref_resp = tfast.grid_keys(sup, border, cell)
+    np.testing.assert_array_equal(keys, ref_keys[0].numpy())
+    np.testing.assert_array_equal(resp, ref_resp[0].numpy())
+    assert (keys > 0).any()
 
 
 # --------------------------------------------------------------------------

@@ -130,6 +130,35 @@ def test_span_inside_its_own_name_is_folded():
     assert [e.name for e in prof.events()].count("slam.test.counts") == 1
 
 
+def test_topk_span_counts_cells_and_the_plain_reduction():
+    """``slam.orb.topk`` wraps each level's ranking of the grid top-K
+    inside ``slam.orb.detect``: under the profiler a record a level with
+    ``cells`` (the cell keys ranked) and ``fused`` 0 on the CPU, where the
+    keys come from the plain reduction; off the profiler nothing is
+    recorded, the span being the shared no-op."""
+    from slam_loop_closing_tpu_torch.config import OrbConfig
+    from slam_loop_closing_tpu_torch.ops import orb
+    from slam_loop_closing_tpu_torch.utils.synth_video import orbit_sequence
+
+    imgs = torch.from_numpy(orbit_sequence(num_frames=2, h=96, w=130,
+                                           num_points=120, seed=3))
+    cfg = OrbConfig(num_features=200, num_levels=2, grid_cell=8)
+    before = len(profiling.spans())
+    off = orb.detect_and_describe_batch(imgs, cfg)
+    assert _new(before) == []
+    assert profiling.annotate("slam.orb.topk", cells=1, fused=0) is \
+        profiling.annotate("slam.orb.detect")
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = orb.detect_and_describe_batch(imgs, cfg)
+    assert torch.equal(on.keypoints.xy, off.keypoints.xy)
+    recs = _new(before)
+    (detect,) = [r for r in recs if r["name"] == "slam.orb.detect"]
+    topk = [r for r in recs if r["name"] == "slam.orb.topk"]
+    assert [r["counters"] for r in topk] == [
+        {"cells": 2 * 12 * 17, "fused": 0}, {"cells": 2 * 10 * 14, "fused": 0}]
+    assert all(r["parent"] == detect["id"] for r in topk)
+
+
 def test_trace_writes_spans_beside_the_trace(tmp_path):
     with profile(activities=[ProfilerActivity.CPU]):
         with profiling.annotate("slam.test.before"):
